@@ -1,0 +1,61 @@
+"""Load the JAX package's variables into the port's modules.
+
+The port's module attributes follow the flax module tree, so a flax path
+``ConvBlock_0/ConvLayer_0/EqualConv_0/Conv_0/kernel`` is the state-dict key
+``ConvBlock_0.ConvLayer_0.EqualConv_0.Conv_0.weight``. Conv kernels go
+HWIO → OIHW; batch-norm ``scale``/``bias``/``mean``/``var`` become
+``weight``/``bias``/``running_mean``/``running_var``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["jax_variables_to_state_dict", "load_jax_variables"]
+
+_BATCH_NORM = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+               "var": "running_var"}
+_CONV = {"kernel": "weight", "bias": "bias"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = np.asarray(v)
+    return flat
+
+
+def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` nested dicts of arrays → a
+    state dict of float32 tensors."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"no mapping for variable collections {sorted(unknown)}")
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(collection, {})).items():
+            *parents, leaf = path
+            names = _BATCH_NORM if parents and parents[-1].startswith("BatchNorm") else _CONV
+            if leaf not in names:
+                raise ValueError(f"no mapping for {collection}/{'/'.join(path)}")
+            if leaf == "kernel":
+                if value.ndim != 4:
+                    raise ValueError(f"{'/'.join(path)}: expected an HWIO conv kernel, "
+                                     f"got shape {value.shape}")
+                value = value.transpose(3, 2, 0, 1)
+            key = ".".join([*parents, names[leaf]])
+            state[key] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+    return state
+
+
+def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Load JAX variables into ``module`` with ``strict=True``: a parameter
+    missing on either side raises."""
+    module.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
+    return module

@@ -1,0 +1,251 @@
+"""CNN encoder/decoder stack (counterpart: ``ot_vae_tpu/networks/cnn.py``).
+
+``CNN`` takes and returns NHWC tensors, as the JAX package does
+(``out_size`` is (H, W, C)); inside, tensors run NCHW in ``channels_last``
+memory, so the 1×1 qkv conv's output viewed as [B, T, 3·H·C] is already the
+packed layout the attention kernel reads. Module attribute names follow the
+flax module tree (``ConvBlock_0``, ``ConvLayer_1``, ...), which is what
+``convert.py`` relies on.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from ot_vae_tpu_torch.networks.nets_utils import (
+    EqualConv,
+    Normalization,
+    div_sqrt,
+    get_activation,
+    spatial_attention,
+)
+
+__all__ = ["ConvLayer", "Conv1x1", "AttentionBlock", "ConvBlock", "CNN",
+           "get_channel_list", "get_block_scaling"]
+
+
+def _factor(flag: Union[bool, int]) -> int:
+    if not flag:
+        return 0
+    return 2 if isinstance(flag, bool) else int(flag)
+
+
+class ConvLayer(nn.Module):
+    """norm → act → upsample → conv (strided when downsampling)."""
+
+    def __init__(self, in_features: int, features: int,
+                 down_sample: Union[bool, int] = False,
+                 up_sample: Union[bool, int] = False,
+                 normalization: Optional[str] = None,
+                 activation: Optional[str] = None,
+                 equalized_lr: Optional[float] = None,
+                 kernel_size: int = 3, groups: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if not (in_features % groups == 0 and features % groups == 0):
+            groups = 1
+        self.act = get_activation(activation)
+        self.Normalization_0 = Normalization(normalization, in_features, dtype)
+        kernel, stride = kernel_size, 1
+        if down_sample:
+            stride = _factor(down_sample)
+            kernel = max(2 * stride, kernel)
+        # a strided conv pads (1, 2) at kernel 4: nn.Conv2d's symmetric
+        # padding cannot say that, so EqualConv pads explicitly
+        pad = (((kernel - 1) // 2, kernel // 2) if stride > 1
+               else ((kernel - 1) // 2, kernel - 1 - (kernel - 1) // 2))
+        self.EqualConv_0 = EqualConv(
+            in_features, features, kernel, stride, (pad, pad), groups,
+            use_bias, equalized_lr, _factor(up_sample), dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.EqualConv_0(self.act(self.Normalization_0(x)))
+
+
+class Conv1x1(nn.Module):
+    """Bias-free 1×1 conv, optionally normalized or resampled (skips, qkv)."""
+
+    def __init__(self, in_features: int, features: int,
+                 down_sample: Union[bool, int] = False,
+                 up_sample: Union[bool, int] = False,
+                 normalization: Optional[str] = None,
+                 equalized_lr: Optional[float] = None, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ConvLayer_0 = ConvLayer(
+            in_features, features, down_sample, up_sample, normalization, None,
+            equalized_lr, 1, groups, False, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ConvLayer_0(x)
+
+
+class AttentionBlock(nn.Module):
+    """Spatial self-attention: 1×1 qkv → multi-head attention → 1×1 proj.
+    The projections stay PyTorch convs; the attention between them is the
+    hand-written kernel on a CUDA tensor."""
+
+    def __init__(self, channels: int, heads: int = 1,
+                 normalization: Optional[str] = None,
+                 equalized_lr: Optional[float] = None, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.heads = heads
+        self.Conv1x1_0 = Conv1x1(channels, channels * 3, normalization=normalization,
+                                 equalized_lr=equalized_lr, groups=groups, dtype=dtype)
+        self.Conv1x1_1 = Conv1x1(channels, channels, equalized_lr=equalized_lr,
+                                 groups=groups, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        # channels_last NCHW → [B, T, 3·C] is a view, not a copy
+        qkv = self.Conv1x1_0(x).permute(0, 2, 3, 1).reshape(b, h * w, 3 * c)
+        out = spatial_attention(qkv, self.heads)
+        return self.Conv1x1_1(out.view(b, h, w, c).permute(0, 3, 1, 2))
+
+
+class ConvBlock(nn.Module):
+    """Resampling layer + (n_layers-1) fixed layers + optional attention,
+    with a residual add/cat through a 1×1 skip."""
+
+    def __init__(self, in_features: int, features: int, n_attn_heads: int = 0,
+                 n_layers: int = 2, down_sample: Union[bool, int] = False,
+                 up_sample: Union[bool, int] = False,
+                 normalization: Optional[str] = "batchnorm",
+                 activation: Optional[str] = "relu",
+                 residual: Optional[str] = None,
+                 equalized_lr: Optional[float] = None, kernel_size: int = 3,
+                 groups: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.residual = residual
+        self.n_layers = n_layers
+        embed = features // 2 if residual == "cat" else features
+        for i in range(n_layers):
+            setattr(self, f"ConvLayer_{i}", ConvLayer(
+                in_features if i == 0 else embed, embed,
+                down_sample if i == 0 else False, up_sample if i == 0 else False,
+                normalization, activation, equalized_lr, kernel_size, groups,
+                use_bias, dtype))
+        self.AttentionBlock_0 = (AttentionBlock(
+            embed, n_attn_heads, normalization, equalized_lr, groups, dtype)
+            if n_attn_heads > 0 else None)
+        self.Conv1x1_0 = (Conv1x1(
+            in_features, embed, down_sample, up_sample, normalization,
+            equalized_lr, groups, dtype)
+            if residual in ("cat", "add") else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = x
+        for i in range(self.n_layers):
+            out = getattr(self, f"ConvLayer_{i}")(out)
+        if self.AttentionBlock_0 is not None:
+            out = out + self.AttentionBlock_0(out)
+        if self.Conv1x1_0 is None:
+            return out
+        skip = self.Conv1x1_0(x)
+        if self.residual == "cat":
+            return torch.cat([out, skip], dim=1)
+        return out + skip
+
+
+def get_block_scaling(max_resolution: int, min_resolution: int,
+                      max_scaling: int) -> List[int]:
+    """Per-block scaling factors from high to low resolution.
+    get_block_scaling(64, 2, 4) → [4, 4, 2]."""
+    log_res_ratio = int(math.log2(max_resolution // min_resolution))
+    log_scale = int(math.log2(max_scaling))
+    mapping: List[int] = []
+    while log_res_ratio > 0:
+        mapping.extend([int(2**log_scale)] * (log_res_ratio // log_scale))
+        log_res_ratio %= log_scale
+        log_scale -= 1
+    return mapping
+
+
+def get_channel_list(in_features: int, out_features: int, in_resolution: int,
+                     out_resolution: int, scaling_factor: int,
+                     capacity: int) -> Tuple[List[int], List[int]]:
+    """Channels double per block as the resolution drops."""
+    factors = get_block_scaling(in_resolution, out_resolution, scaling_factor)
+    features = [max(min(2**i * capacity, out_features), in_features)
+                for i, _ in enumerate(factors)]
+    resolutions = [in_resolution]
+    for sf in factors:
+        resolutions.append(resolutions[-1] // sf)
+    features[-1] = out_features
+    return [in_features] + features, resolutions
+
+
+def _plan_cnn(in_features, out_features, in_resolution, out_resolution,
+              intermediate_features, capacity, max_attn_res, down_sample,
+              up_sample):
+    """The block plan: (features list, attention resolution of each block)."""
+    if bool(up_sample) and bool(down_sample):
+        raise ValueError("Both `up_sample` and `down_sample` are set.")
+    if intermediate_features is not None:
+        features = [in_features] + list(intermediate_features) + [out_features]
+        return features, [max_attn_res + 1] * len(features)
+    if not (in_resolution and out_resolution and (bool(up_sample) or bool(down_sample))):
+        raise ValueError(
+            "Set `in_resolution`, `out_resolution` and (`up_sample` or `down_sample`)"
+            " to infer the block plan, or pass `intermediate_features`.")
+    if bool(down_sample):
+        if in_resolution <= out_resolution:
+            raise ValueError("`down_sample` set but `in_resolution` <= `out_resolution`")
+        features, resolutions = get_channel_list(
+            in_features, out_features, in_resolution, out_resolution,
+            _factor(down_sample), capacity)
+        return features, resolutions[1:]
+    if out_resolution <= in_resolution:
+        raise ValueError("`up_sample` set but `out_resolution` <= `in_resolution`")
+    features, resolutions = get_channel_list(
+        out_features, in_features, out_resolution, in_resolution,
+        _factor(up_sample), capacity)
+    return features[::-1], resolutions[::-1][:-1]
+
+
+class CNN(nn.Module):
+    """Stack of ConvBlocks on the auto channel/resolution schedule.
+    Takes and returns NHWC; ``out_size`` = (H, W, C)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 in_resolution: Optional[int] = None,
+                 out_resolution: Optional[int] = None,
+                 intermediate_features: Optional[Sequence[int]] = None,
+                 capacity: int = 8, max_attn_res: int = 16, n_layers: int = 2,
+                 residual: Optional[str] = None,
+                 down_sample: Union[bool, int] = False,
+                 up_sample: Union[bool, int] = False,
+                 normalization: Optional[str] = "batchnorm",
+                 activation: Optional[str] = "relu",
+                 equalized_lr: Optional[float] = None, kernel_size: int = 3,
+                 groups: int = 1, use_bias: bool = True,
+                 attn_head_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.out_size = (out_resolution, out_resolution, out_features)
+        features, attn_res = _plan_cnn(
+            in_features, out_features, in_resolution, out_resolution,
+            intermediate_features, capacity, max_attn_res, down_sample, up_sample)
+        self.n_blocks = len(features) - 1
+        for bi, (ic, oc, r) in enumerate(zip(features[:-1], features[1:], attn_res)):
+            if r > max_attn_res:
+                heads = 0
+            elif attn_head_dim and oc % attn_head_dim == 0:
+                heads = max(1, oc // attn_head_dim)
+            else:
+                heads = div_sqrt(oc)
+            setattr(self, f"ConvBlock_{bi}", ConvBlock(
+                ic, oc, heads, n_layers, down_sample, up_sample, normalization,
+                activation, residual, equalized_lr, kernel_size, groups,
+                use_bias, dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)  # NHWC → NCHW view, channels_last memory
+        for bi in range(self.n_blocks):
+            x = getattr(self, f"ConvBlock_{bi}")(x)
+        return x.permute(0, 2, 3, 1)

@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions."""
+from ot_vae_tpu_torch.ops.attention import attention_packed, attention_packed_reference
+
+__all__ = ["attention_packed", "attention_packed_reference"]

@@ -1,0 +1,221 @@
+// Packed-qkv multi-head attention forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_fwd_kernel_packed` (ot_vae_tpu/ops/attention_pallas.py)
+// reached through `fused_attention_packed`. Same function:
+//
+//   qkv [B, T, 3*H*C]  (q block, then k, then v; heads contiguous in each block)
+//   out [B, T, H*C]    softmax(scale * Q K^T) V per head, in the input dtype
+//   lse [B, T, H]      f32 log-sum-exp of the scaled logits
+//
+// Design. The TPU kernel holds a whole [T, T] instance in VMEM; an SM has at
+// most 227 KB of shared memory, so this kernel streams keys instead
+// (flash-attention forward):
+//   - grid (query tile, head, batch); each thread owns one query row (two
+//     threads share a row when C > 64, so q and the f32 accumulator stay in
+//     registers);
+//   - K and V tiles of kKeyTile rows are copied from the packed rows into
+//     shared memory as f32 (q at h*C, k at H*C + h*C, v at 2*H*C + h*C:
+//     strided column slices, nothing transposed);
+//   - online softmax in f32, O accumulated in f32 and normalised once at the
+//     end, lse = m + log(l); keys past T are masked, rows past T not written.
+// Products run on CUDA-core FMAs in f32 on exactly converted inputs, which is
+// the input dtype's product with f32 accumulation.
+//
+// What bounds it: at the FFHQ128 decoder's block (B=64, H=2, C=64, T=1024)
+// the work is 4*T^2*C*B*H = 3.4e10 FLOP against 68 MB of input and output,
+// so the card's bound is the tensor-core rate. This kernel uses no tensor
+// cores (mma.sync or wgmma with TMA-fed tiles is the next step) and is far
+// above that bound; each K/V tile is read once per query tile from L2.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kKeyTile = 32;
+constexpr int kChunk = 8;  // keys per online-softmax step
+
+__device__ __forceinline__ void load4(const float* p, float* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  dst[0] = a.x;
+  dst[1] = a.y;
+  dst[2] = a.z;
+  dst[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* dst) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 lo = __bfloat1622float2(h[0]);
+  const float2 hi = __bfloat1622float2(h[1]);
+  dst[0] = lo.x;
+  dst[1] = lo.y;
+  dst[2] = hi.x;
+  dst[3] = hi.y;
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+attention_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                            float* __restrict__ lse, int seq, int heads,
+                            float scale) {
+  constexpr int kRowThreads = C > 64 ? 2 : 1;  // threads sharing a query row
+  constexpr int kDims = C / kRowThreads;        // head dims each thread owns
+  constexpr int kRows = kThreads / kRowThreads; // query rows per block
+  constexpr int kChunks = C / 4;                // 4-element chunks in a row
+  static_assert(C % 8 == 0 && C <= 128, "head dim must be a multiple of 8, at most 128");
+  static_assert(kDims % 4 == 0, "per-thread dims must be whole 4-element chunks");
+  static_assert(kKeyTile % kChunk == 0, "key tile must be whole chunks");
+
+  __shared__ __align__(16) float k_tile[kKeyTile][C];
+  __shared__ __align__(16) float v_tile[kKeyTile][C];
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row = blockIdx.x * kRows + threadIdx.x / kRowThreads;
+  const int part = threadIdx.x % kRowThreads;
+  const int64_t width = 3LL * heads * C;
+  const T* base = qkv + static_cast<int64_t>(b) * seq * width;
+  const int k_col = heads * C + h * C;
+  const int v_col = 2 * heads * C + h * C;
+  const bool valid = row < seq;
+
+  float q[kDims];
+  float o[kDims];
+#pragma unroll
+  for (int d = 0; d < kDims; ++d) {
+    q[d] = 0.f;
+    o[d] = 0.f;
+  }
+  if (valid) {
+    const T* q_row = base + row * width + h * C + part * kDims;
+#pragma unroll
+    for (int d = 0; d < kDims; d += 4) load4(q_row + d, q + d);
+  }
+
+  float m = -INFINITY;
+  float l = 0.f;
+  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < kKeyTile * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * 4;
+      float kv[4] = {0.f, 0.f, 0.f, 0.f};
+      float vv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k0 + r < seq) {
+        const T* key_row = base + (k0 + r) * width;
+        load4(key_row + k_col + c, kv);
+        load4(key_row + v_col + c, vv);
+      }
+      *reinterpret_cast<float4*>(&k_tile[r][c]) = make_float4(kv[0], kv[1], kv[2], kv[3]);
+      *reinterpret_cast<float4*>(&v_tile[r][c]) = make_float4(vv[0], vv[1], vv[2], vv[3]);
+    }
+    __syncthreads();
+
+    // keys in chunks of kChunk: the chunk loop stays rolled, so the unrolled
+    // body (and the build) stays small and s[] lives in registers
+    const int n_keys = min(kKeyTile, seq - k0);
+#pragma unroll 1
+    for (int j0 = 0; j0 < n_keys; j0 += kChunk) {
+      float s[kChunk];
+      float chunk_max = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float* k_row = &k_tile[j0 + jj][part * kDims];
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < kDims; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(k_row + d);
+          acc = fmaf(q[d], kk.x, acc);
+          acc = fmaf(q[d + 1], kk.y, acc);
+          acc = fmaf(q[d + 2], kk.z, acc);
+          acc = fmaf(q[d + 3], kk.w, acc);
+        }
+        if (kRowThreads == 2) acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        s[jj] = j0 + jj < n_keys ? acc * scale : -INFINITY;
+        chunk_max = fmaxf(chunk_max, s[jj]);
+      }
+
+      // j0 < n_keys, so chunk_max and m_new are finite; exp(-inf) = 0 masks
+      const float m_new = fmaxf(m, chunk_max);
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) o[d] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float p = expf(s[jj] - m_new);
+        const float* v_row = &v_tile[j0 + jj][part * kDims];
+        l += p;
+#pragma unroll
+        for (int d = 0; d < kDims; d += 4) {
+          const float4 vv = *reinterpret_cast<const float4*>(v_row + d);
+          o[d] = fmaf(p, vv.x, o[d]);
+          o[d + 1] = fmaf(p, vv.y, o[d + 1]);
+          o[d + 2] = fmaf(p, vv.z, o[d + 2]);
+          o[d + 3] = fmaf(p, vv.w, o[d + 3]);
+        }
+      }
+      m = m_new;
+    }
+  }
+
+  if (!valid) return;
+  const float inv = 1.f / l;
+  T* o_row = out + (static_cast<int64_t>(b) * seq + row) * heads * C + h * C + part * kDims;
+#pragma unroll
+  for (int d = 0; d < kDims; ++d) store(o_row + d, o[d] * inv);
+  if (part == 0) lse[(static_cast<int64_t>(b) * seq + row) * heads + h] = m + logf(l);
+}
+
+template <typename T, int C>
+cudaError_t launch(const void* qkv, void* out, float* lse, int batch, int seq,
+                   int heads, float scale, cudaStream_t stream) {
+  constexpr int kRows = kThreads / (C > 64 ? 2 : 1);
+  const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
+  attention_packed_fwd_kernel<T, C><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), lse, seq, heads, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int head_dim, const void* qkv, void* out, float* lse,
+                     int batch, int seq, int heads, float scale,
+                     cudaStream_t stream) {
+  switch (head_dim) {
+#define CASE(C) \
+  case C:       \
+    return launch<T, C>(qkv, out, lse, batch, seq, heads, scale, stream);
+    CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64)
+    CASE(72) CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120) CASE(128)
+#undef CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+extern "C" int attention_packed_fwd(const void* qkv, void* out, void* lse,
+                                    int batch, int seq, int heads, int head_dim,
+                                    float scale, int dtype, void* stream) {
+  if (batch < 1 || seq < 1 || heads < 1 || batch > 65535 || heads > 65535)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  if (dtype == 0)
+    return dispatch<float>(head_dim, qkv, out, lse_f, batch, seq, heads, scale, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(head_dim, qkv, out, lse_f, batch, seq, heads, scale, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,116 @@
+"""Serving: batched inference over a VAE (counterpart: ``ot_vae_tpu/serving.py``).
+
+Requests are padded up to the nearest batch bucket, so the card sees a few
+fixed shapes; raw images are normalised and outputs un-normalised with the
+model's inference transforms. Every endpoint runs under
+``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ot_vae_tpu_torch.models.base import seeded_generator
+from ot_vae_tpu_torch.utils import resolve_device
+
+__all__ = ["InferenceEngine"]
+
+
+class InferenceEngine:
+    """Bucketed inference over a model whose weights are already loaded.
+
+    :param model: a ``VAE`` with its weights (``convert.load_jax_variables``
+        or a seeded init)
+    :param batch_sizes: batch buckets; a request is padded up to the nearest
+    :param device: the engine's device; ``"cuda"`` raises without a card
+    """
+
+    def __init__(self, model, checkpoint_path: Optional[str] = None,
+                 batch_sizes: Sequence[int] = (1, 8, 64), mesh=None,
+                 device="cuda"):
+        if checkpoint_path is not None:
+            raise NotImplementedError(
+                "checkpoint_path: checkpoints arrive with the training slice")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-GPU serving arrives with the multi-GPU slice")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device, memory_format=torch.channels_last).eval()
+        self.model.inference = True
+        self.batch_sizes = tuple(sorted(batch_sizes))
+        # when a caller passes no generator, every endpoint draws from a
+        # per-engine counter: a fresh engine reproduces the same sequence
+        self._default_calls = 0
+
+    def _default_generator(self) -> torch.Generator:
+        g = seeded_generator(self._default_calls, self.device)
+        self._default_calls += 1
+        return g
+
+    def _bucket(self, n: int) -> int:
+        bucket = next((b for b in self.batch_sizes if b >= n), None)
+        if bucket is None:
+            top = self.batch_sizes[-1]
+            bucket = -(-n // top) * top
+        return bucket
+
+    def _pad(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
+        n = x.shape[0]
+        if n < bucket:
+            x = torch.cat([x, x.new_zeros((bucket - n, *x.shape[1:]))])
+        return x
+
+    def _images(self, images) -> Tuple[torch.Tensor, int]:
+        x = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
+        n = x.shape[0]
+        return self._pad(self.model.inference_preprocess(x), self._bucket(n)), n
+
+    def _noise(self, noise, bucket: int) -> Optional[torch.Tensor]:
+        if noise is None:
+            return None
+        eps = torch.as_tensor(np.asarray(noise, np.float32), device=self.device)
+        return self._pad(eps, bucket)
+
+    @staticmethod
+    def _out(x: torch.Tensor, n: int) -> np.ndarray:
+        return x[:n].float().cpu().numpy()
+
+    # ------------------------------------------------------------ serving API
+
+    @torch.inference_mode()
+    def encode(self, images, generator: Optional[torch.Generator] = None,
+               noise=None) -> np.ndarray:
+        """Raw NHWC images → latents z = μ + σ·ε. ``noise`` is ε for the
+        request's rows; without it ε is drawn from ``generator``."""
+        x, n = self._images(images)
+        generator = generator if generator is not None else self._default_generator()
+        z = self.model.net.encode(x, generator, self._noise(noise, x.shape[0]))
+        return self._out(z, n)
+
+    @torch.inference_mode()
+    def decode(self, latents) -> np.ndarray:
+        z = torch.as_tensor(np.asarray(latents, np.float32), device=self.device)
+        n = z.shape[0]
+        out = self.model.net.decode(self._pad(z, self._bucket(n)))
+        return self._out(self.model.inference_postprocess(out), n)
+
+    @torch.inference_mode()
+    def sample(self, batch_size: int,
+               generator: Optional[torch.Generator] = None) -> np.ndarray:
+        generator = generator if generator is not None else self._default_generator()
+        out = self.model.net.sample(batch_size, generator)
+        return self._out(self.model.inference_postprocess(out), batch_size)
+
+    @torch.inference_mode()
+    def reconstruct(self, images, generator: Optional[torch.Generator] = None,
+                    noise=None) -> np.ndarray:
+        x, n = self._images(images)
+        generator = generator if generator is not None else self._default_generator()
+        out = self.model.net(x, generator, self._noise(noise, x.shape[0]))
+        return self._out(self.model.inference_postprocess(out), n)
+
+    def restore(self, images, transport, generator=None):
+        raise NotImplementedError(
+            "restore: latent transport arrives with the latent-transport slice")
