@@ -1,10 +1,12 @@
-"""Load the JAX package's variables into the port's modules.
+"""Carry variables between the JAX package and the port's modules.
 
 The port's module attributes follow the flax module tree, so a flax path
 ``ConvBlock_0/ConvLayer_0/EqualConv_0/Conv_0/kernel`` is the state-dict key
 ``ConvBlock_0.ConvLayer_0.EqualConv_0.Conv_0.weight``. Conv kernels go
 HWIO → OIHW; batch-norm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``.
+:func:`state_dict_to_jax_variables` is the inverse, so tests can hold trained
+parameters and running statistics against the JAX package's key by key.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_variables_to_state_dict", "load_jax_variables"]
+__all__ = ["jax_variables_to_state_dict", "load_jax_variables",
+           "state_dict_to_jax_variables"]
 
 _BATCH_NORM = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                "var": "running_var"}
@@ -59,3 +62,30 @@ def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.Mo
     missing on either side raises."""
     module.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
     return module
+
+
+_BATCH_NORM_INV = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                   "running_mean": ("batch_stats", "mean"),
+                   "running_var": ("batch_stats", "var")}
+_CONV_INV = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+
+
+def state_dict_to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A state dict → ``{"params": ..., "batch_stats": ...}`` nested dicts of
+    float32 numpy arrays in the JAX package's layout (conv kernels HWIO)."""
+    variables: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, tensor in state.items():
+        *parents, leaf = key.split(".")
+        names = (_BATCH_NORM_INV if parents and parents[-1].startswith("BatchNorm")
+                 else _CONV_INV)
+        if leaf not in names:
+            raise ValueError(f"no mapping for {key}")
+        collection, name = names[leaf]
+        value = tensor.detach().float().cpu().numpy()
+        if name == "kernel":
+            value = value.transpose(2, 3, 1, 0)
+        node = variables[collection]
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(value)
+    return variables

@@ -1,3 +1,6 @@
+from ot_vae_tpu_torch.data.base import ArrayDataset, BaseDatamodule, dataset_split
+from ot_vae_tpu_torch.data.datasets import FFHQ128, ImageFolderData
+from ot_vae_tpu_torch.data.synthetic import synthetic_textures
 from ot_vae_tpu_torch.data.transforms import (
     FFHQ128_MEAN,
     FFHQ128_STD,
@@ -7,7 +10,11 @@ from ot_vae_tpu_torch.data.transforms import (
     Transform,
     UnNormalize,
     ffhq128_transforms,
+    from_spec,
+    to_spec,
 )
 
 __all__ = ["Transform", "Identity", "Compose", "Normalize", "UnNormalize",
-           "FFHQ128_MEAN", "FFHQ128_STD", "ffhq128_transforms"]
+           "FFHQ128_MEAN", "FFHQ128_STD", "ffhq128_transforms", "to_spec", "from_spec",
+           "ArrayDataset", "BaseDatamodule", "dataset_split", "synthetic_textures",
+           "ImageFolderData", "FFHQ128"]

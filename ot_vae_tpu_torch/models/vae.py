@@ -1,24 +1,27 @@
-"""VAE for serving (counterpart: ``ot_vae_tpu/models/vae.py``).
+"""VAE (counterpart: ``ot_vae_tpu/models/vae.py``).
 
 ``VAENet`` is encoder → prior → decoder on NHWC tensors; ``VAE`` wraps it
-with the inference transforms. The nELBO loss and training come with the
-training slice.
+with the inference transforms, the nELBO loss the trainer minimises and the
+eval forward its validation runs. Train or eval mode follows
+``module.training``: in train mode the batch norms use and update batch
+statistics.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ot_vae_tpu_torch.models.base import VisionModel
-from ot_vae_tpu_torch.utils import replicate_batch
+from ot_vae_tpu_torch.utils import mean_replicated_batch, replicate_batch
 
 __all__ = ["VAENet", "VAE"]
 
 
 class VAENet(nn.Module):
-    """Encoder → prior (reparametrize) → decoder, eval mode."""
+    """Encoder → prior (reparametrize + loss) → decoder."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  prior: Optional[nn.Module] = None):
@@ -34,11 +37,16 @@ class VAENet(nn.Module):
         return enc_out if self.prior is None else tuple(self.prior.out_size(enc_out))
 
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None, expand: int = 1) -> torch.Tensor:
+               noise: Optional[torch.Tensor] = None, expand: int = 1,
+               step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False):
+        """z, or (z, per-sample prior loss, artifacts) with ``return_artifacts``.
+        The batch is replicated ``expand``× before the draw."""
         enc = replicate_batch(self.encoder(x), expand)
         if self.prior is None:
-            return enc
-        return self.prior(enc, generator=generator, noise=noise)
+            z, loss, artifacts = enc, enc.new_zeros(enc.shape[0]), {}
+        else:
+            z, loss, artifacts = self.prior(enc, step, generator=generator, noise=noise)
+        return (z, loss, artifacts) if return_artifacts else z
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(z)
@@ -61,17 +69,75 @@ class VAENet(nn.Module):
 
 
 class VAE(VisionModel):
-    """Inference API of the VAE: ``encode``, ``decode``, ``sample`` and the
-    eval-mode forward, each wrapped by the inference transforms when
-    ``inference`` is on."""
+    """nELBO = MSE(recon, target) + prior loss, and the inference API
+    (``encode``, ``decode``, ``sample``, forward), each wrapped by the
+    inference transforms when ``inference`` is on.
+
+    :param expansion: samples of z per image in the loss; the reconstruction
+        term takes the mean of the replicas' reconstructions
+    """
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
-                 prior: Optional[nn.Module] = None):
-        super().__init__(VAENet(encoder, decoder, prior))
+                 prior: Optional[nn.Module] = None, metrics=None,
+                 monitor: str = "psnr", mode: str = "max", expansion: int = 1, learning_rate: float = 1e-3,
+                 ema_decay: Optional[float] = None, checkpoints=None,
+                 gradient_clip_val: Optional[float] = None):
+        super().__init__(VAENet(encoder, decoder, prior), metrics, monitor, mode,
+                         learning_rate, ema_decay, gradient_clip_val, checkpoints)
+        self.expansion = expansion
 
     @property
     def latent_size(self) -> Tuple[int, ...]:
         return self.net.latent_size
+
+    # ------------------------------------------------------------ training
+
+    def batch_preprocess(self, batch, train: bool = True) -> Dict[str, torch.Tensor]:
+        """(samples, labels) → {'samples', 'target'}."""
+        samples = batch[0]
+        return {"samples": samples, "target": samples}
+
+    def recon_loss(self, reconstructions: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        acc = torch.promote_types(reconstructions.dtype, torch.float32)
+        return torch.mean((reconstructions.to(acc) - target.to(acc)) ** 2)
+
+    def prior_loss(self, prior_loss: torch.Tensor, prior_artifacts=None) -> torch.Tensor:
+        return torch.mean(prior_loss)
+
+    def loss_fn(self, pbatch: Dict[str, torch.Tensor], step: Union[int, torch.Tensor] = 0,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """nELBO in train mode (batch statistics, running statistics
+        updated), as the JAX ``loss_fn`` applies the net with ``train=True``.
+
+        :param noise: ε for the (expanded) batch; drawn from ``generator``
+            when None
+        :return: (loss, logs, outputs)
+        """
+        samples, target = pbatch["samples"], pbatch["target"]
+        batch_size = samples.shape[0]
+        self.net.train()
+        z, ploss, partifacts = self.net.encode(samples, generator, noise, self.expansion,
+                                               step, return_artifacts=True)
+        recon = self.net.decode(z)
+        recon_mean = mean_replicated_batch(recon, self.expansion)
+        p_loss = self.prior_loss(ploss, partifacts) / math.prod(samples.shape[1:])
+        r_loss = self.recon_loss(recon_mean, target)
+        loss = r_loss + p_loss
+        logs = {"train/loss/total": loss.detach(), "train/loss/recon": r_loss.detach(),
+                "train/loss/prior": p_loss.detach()}
+        outputs = {**pbatch, "preds": recon[:batch_size], "latents": z[:batch_size],
+                   "preds_mean": recon_mean}
+        return loss, logs, outputs
+
+    @torch.no_grad()
+    def eval_forward(self, pbatch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Full forward in eval mode (running statistics)."""
+        self.net.eval()
+        return self.net(pbatch["samples"], generator)
+
+    # ------------------------------------------------------------ user API
 
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -210,7 +210,8 @@ def _plan_cnn(in_features, out_features, in_resolution, out_resolution,
 
 class CNN(nn.Module):
     """Stack of ConvBlocks on the auto channel/resolution schedule.
-    Takes and returns NHWC; ``out_size`` = (H, W, C)."""
+    Takes and returns NHWC; ``out_size`` = (H, W, C). Train and eval mode
+    follow ``module.training`` (the batch norms read it)."""
 
     def __init__(self, in_features: int, out_features: int,
                  in_resolution: Optional[int] = None,
@@ -224,9 +225,12 @@ class CNN(nn.Module):
                  activation: Optional[str] = "relu",
                  equalized_lr: Optional[float] = None, kernel_size: int = 3,
                  groups: int = 1, use_bias: bool = True,
-                 attn_head_dim: Optional[int] = None,
+                 attn_head_dim: Optional[int] = None, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dropout > 0:
+            raise NotImplementedError(
+                "dropout > 0: the CNN dropout draw arrives with slice 9 (ROADMAP)")
         self.out_size = (out_resolution, out_resolution, out_features)
         features, attn_res = _plan_cnn(
             in_features, out_features, in_resolution, out_resolution,

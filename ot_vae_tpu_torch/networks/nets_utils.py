@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ot_vae_tpu_torch.ops.attention import attention_packed
+from ot_vae_tpu_torch.ops.attention import fused_attention_packed
 
 __all__ = [
     "div_sqrt",
@@ -50,21 +50,41 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     raise NotImplementedError(f"activation={name} not supported")
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode batch norm from running statistics, flax's eps of 1e-5.
-    Statistics are applied in f32 and the output cast to ``dtype``."""
+_BN_EPS = 1e-5  # flax nn.BatchNorm's default
+_BN_MOMENTUM = 0.9  # ot_vae_tpu's Normalization
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9)`` with its eps of 1e-5, on NCHW.
+
+    Train mode (``module.training``) normalises with the batch statistics,
+    taken in f32 over N, H and W with flax's fast variance E[x²] − E[x]²
+    (clipped at 0), and moves the running statistics as flax does:
+    new = 0.9·old + 0.1·batch, with the *biased* batch variance.
+    ``F.batch_norm(training=True)`` would feed the unbiased variance into
+    ``running_var``, so it is not used. Eval mode normalises with the running
+    statistics. Either way the arithmetic is f32 (f64 for f64 input) and the
+    output is cast to ``dtype``."""
+
+    def __init__(self, features: int):
         super().__init__()
-        self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(_BN_MOMENTUM).add_(mean, alpha=1.0 - _BN_MOMENTUM)
+                self.running_var.mul_(_BN_MOMENTUM).add_(var, alpha=1.0 - _BN_MOMENTUM)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + _BN_EPS) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(dtype)
 
 
@@ -156,9 +176,10 @@ def spatial_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     :param qkv: [B, T, 3·H·C] packed queries/keys/values
     :return: [B, T, H·C]
 
-    A CUDA tensor goes through the hand-written kernel at every T and head
-    count (the TPU's T ≥ 512 threshold is not carried over); a CPU tensor
-    through its plain version.
+    A CUDA tensor goes through the hand-written kernels at every T and head
+    count (the TPU's T ≥ 512 threshold is not carried over), the forward
+    kernel and, for its gradient, the backward kernel; a CPU tensor through
+    their plain versions.
     """
     ch = qkv.shape[-1] // (3 * n_heads)
-    return attention_packed(qkv, n_heads, 1.0 / math.sqrt(ch))[0]
+    return fused_attention_packed(qkv, n_heads, 1.0 / math.sqrt(ch))

@@ -14,8 +14,18 @@ memory, so the CUDA kernel streams K/V tiles through shared memory with an
 online softmax and keeps scores out of device memory. It runs on CUDA-core
 FMAs, far above the bound; tensor cores are later work.
 
-A CPU tensor takes :func:`attention_packed_reference`; a CUDA tensor launches
-the kernel or raises. There is no fallback between them.
+The backward kernel (``csrc/attention_packed_bwd.cu``) replaces
+``_bwd_kernel_packed`` (reached through ``_fused_packed_bwd``); it computes the
+packed ``dqkv`` from qkv, out, lse and dout. At the decoder's block at the
+train batch (B=128, H=2, C=64, T=1024, bf16) that is 1.7e11 FLOP against
+270 MB, so its bound is the tensor-core rate too (≈0.17 ms); it runs on
+CUDA-core FMAs far above it. :func:`fused_attention_packed` ties the two
+together in a ``torch.autograd.Function``, as ``_fused_packed.defvjp`` does in
+the JAX package, saving ``(qkv, out, lse)`` as its residuals.
+
+A CPU tensor takes the plain versions (:func:`attention_packed_reference`,
+:func:`attention_packed_backward_reference`); a CUDA tensor launches the
+kernels or raises. There is no fallback between them.
 """
 from __future__ import annotations
 
@@ -25,11 +35,18 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["attention_packed", "attention_packed_reference"]
+__all__ = ["attention_packed", "attention_packed_reference",
+           "attention_packed_backward", "attention_packed_backward_reference",
+           "fused_attention_packed"]
 
-# launches of the CUDA kernel in this process; read and reset it as
-# ``attention.launch_count`` to count the launches of one run
+# launches of the forward and backward CUDA kernels in this process; read
+# and reset them as ``attention.launch_count`` / ``backward_launch_count`` to
+# count the launches of one run
 launch_count = 0
+backward_launch_count = 0
+# dout tensors the autograd Function had to copy into the contiguous
+# [B, T, H·C] layout the backward reads (on any device)
+dout_copies = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -53,20 +70,77 @@ def attention_packed_reference(
 
     :param qkv: [B, T, 3·H·C] packed queries, keys, values (q block first,
         heads contiguous in each block)
-    :return: out [B, T, H·C] in qkv's dtype, lse [B, T, H] f32
+    :return: out [B, T, H·C] in qkv's dtype, lse [B, T, H] f32 (f64 for
+        f64 input)
     """
     b, t, width = qkv.shape
     ch = _split(width, n_heads)
-    heads = qkv.float().view(b, t, 3, n_heads, ch)
+    acc = torch.promote_types(qkv.dtype, torch.float32)  # f64 stays f64 (gradcheck)
+    heads = qkv.to(acc).view(b, t, 3, n_heads, ch)
     q, k, v = (heads[:, :, i].transpose(1, 2) for i in range(3))  # [B,H,T,C]
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
-    weights = (p / denom).to(qkv.dtype).float()
+    weights = (p / denom).to(qkv.dtype).to(acc)
     out = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, n_heads * ch)
     lse = (m + torch.log(denom)).squeeze(-1).transpose(1, 2)
     return out.to(qkv.dtype), lse.contiguous()
+
+
+def attention_packed_backward_reference(
+    qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    n_heads: int, scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel's function, step for step
+    as ``_bwd_kernel_packed`` (``attention_pallas.py:279-317``):
+
+    P = exp(scale·QKᵀ − lse); Δ = rowsum(dO∘O) in f32; dV = P(cast to dO's
+    dtype)ᵀ·dO; dS = P∘(dO·Vᵀ − Δ)·scale cast to q's dtype; dQ = dS·K;
+    dK = dSᵀ·Q. Products take f32 operands (exact for bf16) and accumulate in
+    f32 (f64 for f64 input).
+
+    :param qkv: [B, T, 3·H·C] the forward's input
+    :param out: [B, T, H·C] the forward's output
+    :param lse: [B, T, H] the forward's log-sum-exp
+    :param dout: [B, T, H·C] gradient of ``out``
+    :return: dqkv [B, T, 3·H·C] in qkv's dtype, in the packed column layout
+    """
+    b, t, width = qkv.shape
+    ch = _split(width, n_heads)
+    acc = torch.promote_types(qkv.dtype, torch.float32)
+
+    def heads(x):  # [B, T, H·C] → [B, H, T, C] in the accumulation dtype
+        return x.reshape(b, t, n_heads, ch).transpose(1, 2).to(acc)
+
+    packed = qkv.reshape(b, t, 3, n_heads * ch)
+    q, k, v = (heads(packed[:, :, i]) for i in range(3))
+    o, do = heads(out), heads(dout)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.to(acc).transpose(1, 2).unsqueeze(-1))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(dout.dtype).to(acc).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(qkv.dtype).to(acc)
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.stack([g.transpose(1, 2) for g in (dq, dk, dv)], dim=2)
+    return dqkv.reshape(b, t, width).to(qkv.dtype)
+
+
+def _check_kernel_input(x: torch.Tensor, ch: int, what: str):
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: attention kernels take float32 or bfloat16, got {x.dtype}")
+    if ch % 8 or ch > _MAX_HEAD_DIM:
+        raise ValueError(f"{what}: attention kernels take head dims that are multiples "
+                         f"of 8 up to {_MAX_HEAD_DIM}, got {ch}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: attention kernels take contiguous tensors")
+
+
+def _check_grid(b: int, n_heads: int):
+    if b > 65535 or n_heads > 65535:
+        raise ValueError(f"attention kernel grid limit: batch {b}, heads {n_heads}")
 
 
 def _launch(qkv: torch.Tensor, n_heads: int, scale: float):
@@ -75,17 +149,10 @@ def _launch(qkv: torch.Tensor, n_heads: int, scale: float):
 
     b, t, width = qkv.shape
     ch = _split(width, n_heads)
-    if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"attention kernel takes float32 or bfloat16, got {qkv.dtype}")
-    if ch % 8 or ch > _MAX_HEAD_DIM:
-        raise ValueError(f"attention kernel takes head dims that are multiples "
-                         f"of 8 up to {_MAX_HEAD_DIM}, got {ch}")
-    if not qkv.is_contiguous():
-        raise ValueError("attention kernel takes a contiguous [B, T, 3·H·C] qkv")
+    _check_kernel_input(qkv, ch, "qkv")
     if qkv.data_ptr() % 16:
         raise ValueError("attention kernel needs a 16-byte aligned qkv")
-    if b > 65535 or n_heads > 65535:
-        raise ValueError(f"attention kernel grid limit: batch {b}, heads {n_heads}")
+    _check_grid(b, n_heads)
     lib = load_library("attention_packed")
     fn = lib.attention_packed_fwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -104,6 +171,49 @@ def _launch(qkv: torch.Tensor, n_heads: int, scale: float):
     return out, lse
 
 
+def _launch_backward(qkv, out, lse, dout, n_heads: int, scale: float):
+    global backward_launch_count
+    from ot_vae_tpu_torch.ops._build import load_library
+
+    b, t, width = qkv.shape
+    ch = _split(width, n_heads)
+    for x, what in ((qkv, "qkv"), (out, "out"), (dout, "dout")):
+        _check_kernel_input(x, ch, what)
+        if x.dtype != qkv.dtype or x.device != qkv.device:
+            raise ValueError(f"{what}: dtype and device must match qkv's")
+    if out.shape != (b, t, n_heads * ch) or dout.shape != out.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} "
+                         f"must be [B, T, H·C] = {(b, t, n_heads * ch)}")
+    if (lse.shape != (b, t, n_heads) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != qkv.device):
+        raise ValueError("lse must be a contiguous f32 [B, T, H] on qkv's device")
+    _check_grid(b, n_heads)
+    lib = load_library("attention_packed_bwd")
+    fn = lib.attention_packed_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((b, t, n_heads), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                 dqkv.data_ptr(), delta.data_ptr(), b, t, n_heads, ch, float(scale),
+                 _DTYPE_CODES[qkv.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"attention_packed_bwd launch failed: cudaError {err}")
+    backward_launch_count += 1
+    return dqkv
+
+
+def _check_qkv(qkv: torch.Tensor, n_heads: int, scale):
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be [B, T, 3·H·C], got {tuple(qkv.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(_split(qkv.shape[-1], n_heads))
+    return scale
+
+
 def attention_packed(
     qkv: torch.Tensor, n_heads: int, scale: float = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,12 +222,57 @@ def attention_packed(
     :param scale: logit scale, 1/sqrt(C) when None
     :return: out [B, T, H·C] in qkv's dtype, lse [B, T, H] f32
     """
-    if qkv.dim() != 3:
-        raise ValueError(f"qkv must be [B, T, 3·H·C], got {tuple(qkv.shape)}")
-    if scale is None:
-        scale = 1.0 / math.sqrt(_split(qkv.shape[-1], n_heads))
+    scale = _check_qkv(qkv, n_heads, scale)
     if qkv.device.type == "cpu":
         return attention_packed_reference(qkv, n_heads, scale)
     if qkv.device.type == "cuda":
         return _launch(qkv, n_heads, scale)
     raise ValueError(f"no attention kernel for device {qkv.device}")
+
+
+def attention_packed_backward(
+    qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    n_heads: int, scale: float = None,
+) -> torch.Tensor:
+    """dqkv [B, T, 3·H·C] of :func:`attention_packed` from its residuals and
+    the output's gradient ``dout``."""
+    scale = _check_qkv(qkv, n_heads, scale)
+    if qkv.device.type == "cpu":
+        return attention_packed_backward_reference(qkv, out, lse, dout, n_heads, scale)
+    if qkv.device.type == "cuda":
+        return _launch_backward(qkv, out, lse, dout, n_heads, scale)
+    raise ValueError(f"no attention kernel for device {qkv.device}")
+
+
+class _FusedAttentionPacked(torch.autograd.Function):
+    """Forward kernel, backward kernel; residuals (qkv, out, lse) as in
+    ``_fused_packed_fwd`` (``attention_pallas.py:351-353``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads, scale):
+        out, lse = attention_packed(qkv, n_heads, scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global dout_copies
+        qkv, out, lse = ctx.saved_tensors
+        if not dout.is_contiguous():
+            dout = dout.contiguous()
+            dout_copies += 1
+        dqkv = attention_packed_backward(qkv, out, lse, dout, ctx.n_heads, ctx.scale)
+        return dqkv, None, None
+
+
+def fused_attention_packed(qkv: torch.Tensor, n_heads: int,
+                           scale: float = None) -> torch.Tensor:
+    """Differentiable :func:`attention_packed` (counterpart of
+    ``fused_attention_packed``, ``attention_pallas.py:970``).
+
+    :return: out [B, T, H·C] in qkv's dtype; its gradient runs the backward
+        kernel on a CUDA tensor and the plain backward on a CPU tensor
+    """
+    scale = _check_qkv(qkv, n_heads, scale)
+    return _FusedAttentionPacked.apply(qkv, n_heads, float(scale))

@@ -2,18 +2,24 @@
 (counterpart: ``ot_vae_tpu/priors/gaussian.py``).
 
 (μ, log σ²) are stacked on the last axis of the NHWC encoder output, and
-z = μ + σ·ε with σ = exp(log σ² / 2).
+z = μ + σ·ε with σ = exp(log σ² / 2). The loss is the closed-form reverse
+KL(q || N(0, I)) per sample, or its Monte-Carlo estimate at z.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from ot_vae_tpu_torch.priors.base import PriorModule
+from ot_vae_tpu_torch.priors.base import PriorModule, empirical_reverse_kl
 from ot_vae_tpu_torch.utils import unsqueeze_like
 
 __all__ = ["GaussianPrior"]
+
+
+def _normal_log_prob(x, mean, var):
+    return -0.5 * (torch.log(2.0 * math.pi * var) + (x - mean) ** 2 / var)
 
 
 class GaussianPrior(PriorModule):
@@ -21,10 +27,13 @@ class GaussianPrior(PriorModule):
 
     :param fixed_var: unit variance; with a ``time`` input the variance is
         scaled by the time temperature.
+    :param empirical_kl: Monte-Carlo KL at z instead of the closed form.
     """
 
-    def __init__(self, fixed_var: bool = False):
-        super().__init__()
+    def __init__(self, loss_coeff: float = 1.0, annealing_steps: int = 0,
+                 empirical_kl: bool = False, fixed_var: bool = False):
+        super().__init__(loss_coeff, annealing_steps)
+        self.empirical_kl = empirical_kl
         self.fixed_var = fixed_var
 
     def reparametrization(
@@ -39,6 +48,13 @@ class GaussianPrior(PriorModule):
         mu, log_var = torch.chunk(z, 2, dim=-1)
         return mu, torch.exp(log_var / 2.0)
 
+    @staticmethod
+    def closed_form_reverse_kl(q_mean, q_var, p_mean, p_var) -> torch.Tensor:
+        """KL(q, p) for Gaussians given variances, reduced over non-batch dims."""
+        kl = 0.5 * ((q_mean - p_mean) ** 2 / p_var + torch.log(p_var) - torch.log(q_var)
+                    + q_var / p_var - 1.0)
+        return kl.reshape(kl.shape[0], -1).sum(dim=-1)
+
     def out_size(self, size: Sequence[int]) -> Tuple[int, ...]:
         if self.fixed_var:
             return tuple(size)
@@ -46,17 +62,30 @@ class GaussianPrior(PriorModule):
         out[-1] //= 2
         return tuple(out)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+    def forward(self, x: torch.Tensor, step: Union[int, torch.Tensor] = 0,
+                generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                time: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
-        """z = μ + σ·ε; ε is ``noise`` when given, else drawn from ``generator``."""
-        mean, scale = self.reparametrization(x, temperature=time)
+                time: Optional[torch.Tensor] = None, **_):
+        """z = μ + σ·ε; ε is ``noise`` when given, else drawn from ``generator``.
+
+        :return: (z, per-sample loss [B] scaled for ``step``, artifacts
+            ``{"prior": (p_mean, p_scale), "distribution": (q_mean, q_scale)}``)
+        """
+        q_mean, q_scale = self.reparametrization(x, temperature=time)
+        p_mean, p_scale = self.reparametrization(torch.zeros_like(x))
         if noise is None:
-            noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                                device=mean.device)
-        elif noise.shape != mean.shape:
-            raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(mean.shape)}")
-        return mean + scale * noise.to(mean.dtype)
+            noise = torch.randn(q_mean.shape, generator=generator, dtype=q_mean.dtype,
+                                device=q_mean.device)
+        elif noise.shape != q_mean.shape:
+            raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(q_mean.shape)}")
+        z = q_mean + q_scale * noise.to(q_mean.dtype)
+        if self.empirical_kl:
+            loss = empirical_reverse_kl(_normal_log_prob(z, p_mean, p_scale ** 2),
+                                        _normal_log_prob(z, q_mean, q_scale ** 2), z)
+        else:
+            loss = self.closed_form_reverse_kl(q_mean, q_scale ** 2, p_mean, p_scale ** 2)
+        artifacts = {"prior": (p_mean, p_scale), "distribution": (q_mean, q_scale)}
+        return z, self.scale_loss(loss, step), artifacts
 
     def sample(self, shape: Sequence[int], generator: Optional[torch.Generator] = None,
                device=None, **_) -> torch.Tensor:

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ot_vae_tpu_torch.models.base import seeded_generator
+from ot_vae_tpu_torch.trainer.checkpoint import load_checkpoint
 from ot_vae_tpu_torch.utils import resolve_device
 
 __all__ = ["InferenceEngine"]
@@ -21,22 +22,29 @@ __all__ = ["InferenceEngine"]
 class InferenceEngine:
     """Bucketed inference over a model whose weights are already loaded.
 
-    :param model: a ``VAE`` with its weights (``convert.load_jax_variables``
+    :param model: a ``VAE``; its weights come from ``checkpoint_path`` when
+        given, else they are the model's own (``convert.load_jax_variables``
         or a seeded init)
+    :param checkpoint_path: a checkpoint directory written by
+        ``trainer.checkpoint.save_checkpoint``: the net's state dict and the
+        inference transforms of its sidecar
     :param batch_sizes: batch buckets; a request is padded up to the nearest
+    :param use_ema: serve the checkpoint's EMA parameters, where it has them
     :param device: the engine's device; ``"cuda"`` raises without a card
     """
 
     def __init__(self, model, checkpoint_path: Optional[str] = None,
-                 batch_sizes: Sequence[int] = (1, 8, 64), mesh=None,
-                 device="cuda"):
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoint_path: checkpoints arrive with the training slice")
+                 batch_sizes: Sequence[int] = (1, 8, 64), use_ema: bool = False,
+                 mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-GPU serving arrives with the multi-GPU slice")
         self.device = resolve_device(device)
+        if checkpoint_path is not None:
+            tree, _ = load_checkpoint(checkpoint_path, model)
+            if use_ema and tree.get("ema_params") is not None:
+                model.net.load_state_dict({**tree["model"], **tree["ema_params"]},
+                                          strict=True)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.model.inference = True
         self.batch_sizes = tuple(sorted(batch_sizes))

@@ -54,3 +54,20 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
                 CNN(2, 3, 4, 8, capacity=4, up_sample=True), GaussianPrior())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(model)
+
+
+def test_trainer_and_checkpoint_engine_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    from ot_vae_tpu_torch.models import VAE
+    from ot_vae_tpu_torch.networks import CNN
+    from ot_vae_tpu_torch.priors import GaussianPrior
+    from ot_vae_tpu_torch.serving import InferenceEngine
+    from ot_vae_tpu_torch.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer()
+    model = VAE(CNN(3, 4, 8, 4, capacity=4, down_sample=True),
+                CNN(2, 3, 4, 8, capacity=4, up_sample=True), GaussianPrior())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(model, checkpoint_path=str(tmp_path / "ckpt"))
