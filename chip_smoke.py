@@ -30,10 +30,34 @@ toolkit. Phases, each printing one line:
    activations, f32 parameters and Adam state, batch 128, lr 1e-4) on the
    seeded synthetic FFHQ128 fallback: 20 steps, one validation with PSNR, a
    checkpoint; checks finite losses, a falling loss and 6 forward and 6
-   backward kernel launches per step, and prints steady-state img/s, peak
-   memory and the dout copies per step;
+   backward kernel launches per step (6 forward per validation batch, whose
+   eval step draws its latents from the same encoder pass), and prints
+   steady-state img/s, peak memory and the dout copies per step;
 9. serve the checkpoint: InferenceEngine(checkpoint_path=...) against the
-   in-memory trained model.
+   in-memory trained model;
+10. small head dims: both attention kernels against their plain versions at
+   every (T, H, C) of the MNIST32 models' attention blocks (C from 1 to 16,
+   T from 256 down to 1), bf16 and f32;
+11. Sinkhorn kernel: against its plain version at the latent-transport
+   path's reg, max_iter and threshold (1e-5, 1000, 1e-6) on costs built from
+   seeded codebooks as DiscreteTransport.compute builds them (one 256 x 256
+   instance, 64 x 256 x 256, a ragged 3 x 37 x 200, one 1024 x 1024): the
+   same iteration counts, each instance's total cost, the entries at the
+   path's 256 x 256, marginals as close to a and b as the plain version's;
+   then a well-conditioned batch whose instances stop at different
+   iterations, entry by entry and count by count; its time at 256 x 256
+   beside its bound and the plain version;
+12. MNIST32 latent transport: the AutoEncoder at full width with a discrete
+   LatentTransport (256 components, codebook-to-codebook Sinkhorn) on the
+   seeded synthetic MNIST32 fallback: Trainer.fit for 4 epochs (one Sinkhorn
+   launch per validation), Trainer.test with the model's and the restored
+   PSNR, save_state/load_state bit for bit, InferenceEngine.restore
+   against the test-time encode -> transport -> decode path, and the fitted
+   operator's plan against the plain version's on its codebooks (total
+   cost, the test latents transported and restored through each);
+13. MNIST32 VAE (configs/vae/defaults.yaml, capacity 8, latent 1 x 1 x 128)
+   trains 240 steps at batch 250, gradients clipped at a global norm of 1.0,
+   and Trainer.test reports its PSNR.
 
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.
@@ -114,6 +138,58 @@ TRAIN_LOSS_RTOL = (1e-5, 1e-2)
 GRAD_RTOL = 1e-2
 GRAD_NOISE = 1e-9
 GRAD_NOISE_TOL = 1e-5
+# MNIST32 attention blocks as (T, H, C): the latent-transport AutoEncoder
+# (capacity 4, latent 4 x 4 x 64) and the VAE of configs/vae/defaults.yaml
+# (capacity 8, latent 1 x 1 x 128), heads by div_sqrt of the channels
+SMALL_ATTN_SHAPES = [(256, 2, 2), (64, 4, 2), (16, 8, 8), (16, 4, 2), (64, 2, 2),
+                     (256, 1, 1), (256, 4, 2), (64, 4, 4), (16, 8, 4), (4, 8, 8),
+                     (1, 16, 16), (1, 8, 8)]
+SMALL_ATTN_BATCH = 250
+# the small-head-dim gate floors each entry's denominator at 2^-8 of the RMS
+# of the whole tensor as well: at T=1 dq and dk are zero in exact arithmetic
+# (softmax over one key), so their blocks hold rounding noise alone
+SMALL_FLOOR = 2.0**-8
+# Sinkhorn, the latent-transport path's settings (DiscreteTransport)
+SINKHORN_PATH = dict(reg=1e-5, max_iter=1000, threshold=1e-6)
+SINKHORN_SHAPES = [(1, 256, 256), (64, 256, 256), (3, 37, 200), (1, 1024, 1024)]
+# at the path's reg |Cr| reaches 1e5 and more, where an f32 ulp is 0.008, so
+# exp(u + v + Cr) carries percent-level error in any implementation and two
+# summation orders do not agree entry by entry (the largest difference is
+# printed, not gated, but at the path's one 256 x 256 instance). Gated: equal
+# iteration counts; each instance's total cost sum(C * plan) within 1e-3 of
+# the plain version's, as tests/test_torch_sinkhorn.py holds the plain
+# version to the JAX package (measured 0 at the path's shape, up to 6.6e-5
+# at the others on an H100), and within 3e-3 over the 64 instances of
+# 64 x 256 x 256, whose worst measured 8.5e-4; at 1 x 256 x 256, the path's
+# shape, the largest entry difference within 1e-3 of the largest entry
+# (measured 0); and the kernel's plan as close to the marginals a and b as
+# the plain version's, within a quarter of the plain version's own error
+SINKHORN_COST_RTOL = 1e-3
+SINKHORN_BATCH_COST_RTOL = 3e-3
+SINKHORN_ENTRY_TOL = 1e-3
+SINKHORN_MARGINAL_SLACK = 0.25
+# well-conditioned batch: costs in [0, 1] scaled per instance, reg 0.05,
+# threshold 1e-2, so the instances stop at different iterations; entries
+# within 1e-4 of the largest (f32 sums in other orders over 256 terms per
+# iteration; measured about 1e-6 on an H100)
+SINKHORN_WELL = dict(reg=0.05, max_iter=1000, threshold=1e-2)
+SINKHORN_WELL_TOL = 1e-4
+# H100 SXM: 16 exponentials per clock per SM on the SFUs, at most 1.98 GHz
+EXP_PER_S = 16 * 132 * 1.98e9
+MNIST_TRANSPORT_EPOCHS = 4
+# the fitted MNIST32 operator's test latents transported, and restored,
+# through the kernel's plan and through the plain version's: max abs error
+# over max(1, max |reference|), the tolerance tests/test_torch_transport.py
+# holds the port's transport to jitted JAX with at the path's reg
+TRANSPORT_TOL = 3e-2
+MNIST_VAE_EPOCHS = 10
+# global-norm gradient clipping of the MNIST32 VAE fit. The config's recipe
+# (Adam at 1e-3, no clipping) from seeded weights on the synthetic digits
+# spikes the prior loss by orders of magnitude, in the JAX package as in the
+# port (scripts/recipe_divergence.py jax --model mnist32 --batch 250), and
+# has gone non-finite on the card; clipped at 1.0 every seed measured stayed
+# finite (scripts/recipe_divergence.py fit, PERF.md §6)
+MNIST_VAE_CLIP = 1.0
 
 class CheckFailed(Exception):
     pass
@@ -124,14 +200,17 @@ def check(ok: bool, what: str):
         raise CheckFailed(what)
 
 
-def max_rel_err(got: torch.Tensor, ref: torch.Tensor, blocks: int) -> float:
-    """max |got − ref| / max(|ref|, rms), entry by entry, where rms is that of
-    the entry's block: the last dim of ``ref`` split into ``blocks`` equal
-    parts (q, k and v of a packed tensor), over all other dims."""
+def max_rel_err(got: torch.Tensor, ref: torch.Tensor, blocks: int,
+                floor: float = 0.0) -> float:
+    """max |got − ref| / max(|ref|, rms, floor·RMS of ``ref``), entry by
+    entry, where rms is that of the entry's block: the last dim of ``ref``
+    split into ``blocks`` equal parts (q, k and v of a packed tensor), over
+    all other dims."""
     ref = ref.float()
     parts = ref.view(*ref.shape[:-1], blocks, ref.shape[-1] // blocks)
     dims = tuple(range(parts.dim() - 2)) + (parts.dim() - 1,)
     rms = parts.square().mean(dim=dims, keepdim=True).sqrt()
+    rms = torch.clamp_min(rms, floor * ref.square().mean().sqrt().item())
     err = (got.float().view_as(parts) - parts).abs() / torch.maximum(parts.abs(), rms)
     return err.max().item()
 
@@ -505,8 +584,10 @@ def phase_train(attention, seed: int, workdir: Path):
     bad = [i for i, (f, b, _) in enumerate(steps) if (f, b) != (6, 6)]
     check(not bad, f"train: steps {bad} launched (forward, backward) "
                    f"{[steps[i][:2] for i in bad]}, expected (6, 6)")
+    # a validation batch runs the forward (6 blocks); the eval step's
+    # latents come from the same encoder pass
     val_batches = min(TRAIN_STEPS, dm.steps_per_epoch("val"))
-    check(launches == {"forward": 6 * (TRAIN_STEPS + val_batches),
+    check(launches == {"forward": 6 * TRAIN_STEPS + 6 * val_batches,
                        "backward": 6 * TRAIN_STEPS},
           f"train: kernel launches {launches}")
     check(ckpt.best_path is not None, "train: no checkpoint saved")
@@ -607,6 +688,341 @@ def phase_train_card_vs_cpu(seed: int):
         check(ratio <= 1.0, f"train {side} vs f64: gradient {name} off by {ratio:.3f}x tol")
 
 
+def phase_small_heads(attention):
+    """Both attention kernels against their plain versions at the MNIST32
+    models' attention shapes, head dims 1 to 16, bf16 and f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for t, h, c in SMALL_ATTN_SHAPES:
+            b, scale = SMALL_ATTN_BATCH, 1.0 / math.sqrt(c)
+            qkv = torch.randn((b, t, 3 * h * c), generator=gen, device="cuda").to(dtype)
+            dout = torch.randn((b, t, h * c), generator=gen, device="cuda").to(dtype)
+            out, lse = attention.attention_packed(qkv, h, scale)
+            dqkv = attention.attention_packed_backward(qkv, out, lse, dout, h, scale)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = attention.attention_packed_reference(qkv, h, scale)
+            ref = attention.attention_packed_backward_reference(qkv, out, lse, dout, h, scale)
+            errs = {"out": (out.float() - ref_out.float()).abs().max().item(),
+                    "lse": (lse - ref_lse).abs().max().item(),
+                    "dqkv": (dqkv.float() - ref.float()).abs().max().item()}
+            rel = (max_rel_err(out, ref_out, 1, SMALL_FLOOR),
+                   max_rel_err(dqkv, ref, 3, SMALL_FLOOR))
+            if dtype == torch.bfloat16:
+                gate = f"max_rel_err out {rel[0]:.3e} dqkv {rel[1]:.3e} (tol {BF16_REL_TOL:.1e})"
+                ok = max(rel) <= BF16_REL_TOL
+            else:
+                tols = (OUT_TOL, BWD_TOL * max(1.0, ref.float().abs().max().item()))
+                gate = f"(tol out {tols[0]:.1e}, dqkv {tols[1]:.3e})"
+                ok = errs["out"] <= tols[0] and errs["dqkv"] <= tols[1]
+            print(f"small-head check {name} B={b} T={t} H={h} C={c}: max_abs_err out "
+                  f"{errs['out']:.3e} lse {errs['lse']:.3e} (tol {LSE_TOL:.1e}) dqkv "
+                  f"{errs['dqkv']:.3e} {gate}", flush=True)
+            check(all(math.isfinite(v) for v in errs.values()) and ok
+                  and errs["lse"] <= LSE_TOL,
+                  f"attention small heads {name} T={t} H={h} C={c}: {errs}, rel {rel}")
+            for key in ("out", "dqkv"):
+                worst[(key, dtype)] = max(worst.get((key, dtype), 0.0), errs[key])
+            del qkv, dout, out, lse, dqkv, ref, ref_out, ref_lse
+    return worst
+
+
+def codebook_costs(batch: int, n: int, m: int, dim: int, seed: int):
+    """(a, b, cost) as DiscreteTransport.compute builds them: the weights of
+    two seeded codebooks (from observation counts) and 1 / (energy + 1e-8)
+    between their atoms, energy being the euclidean codebook energy."""
+    from ot_vae_tpu_torch.distributions import CodebookModel, CodebookState
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def codebook(k, spread):
+        return CodebookState(
+            codebook=torch.randn((batch, k, dim), generator=gen, device="cuda") * spread,
+            n_obs=torch.rand((batch, k), generator=gen, device="cuda") * 20.0,
+            s1=torch.zeros((batch, k, dim), device="cuda"), initialized=True)
+
+    source, target = codebook(n, 1.0), codebook(m, 1.3)
+    model = CodebookModel(leading_shape=(batch,), dim=dim, n_components=max(n, m))
+    cost = 1.0 / (model.energy(target.codebook, source.codebook) + 1e-8)
+    return model.weights(source), model.weights(target), cost
+
+
+def phase_sinkhorn(sinkhorn):
+    """The Sinkhorn kernel against its plain version; its time at 256²."""
+    worst, rows = 0.0, {}
+    for batch, n, m in SINKHORN_SHAPES:
+        a, b, cost = codebook_costs(batch, n, m, 16, seed=batch * 7919 + n)
+        got = sinkhorn.sinkhorn_log_kernel(a, b, cost, return_extra=True, **SINKHORN_PATH)
+        torch.cuda.synchronize()
+        want = sinkhorn.sinkhorn_log_kernel_reference(a, b, cost, return_extra=True,
+                                                      **SINKHORN_PATH)
+        diff = (got.plan - want.plan).abs().max().item()
+        top = want.plan.abs().max().item()
+        marg = {}
+        for side, plan in (("kernel", got.plan), ("plain", want.plan)):
+            marg[side] = ((plan.sum(-1) - a).abs().max().item(),
+                          (plan.sum(-2) - b).abs().max().item())
+        totals = [(cost * plan).sum((-2, -1)) for plan in (got.plan, want.plan)]
+        cost_err = ((totals[0] - totals[1]).abs() / totals[1].abs()).max().item()
+        gated = (batch, n, m) == (1, 256, 256)
+        cost_tol = SINKHORN_BATCH_COST_RTOL if batch == 64 else SINKHORN_COST_RTOL
+        iters = (got.num_iters.tolist(), want.num_iters.tolist())
+        print(f"sinkhorn check B={batch} N={n} M={m} reg 1e-5: iterations kernel "
+              f"{sorted(set(iters[0]))} plain {sorted(set(iters[1]))}, last err up to "
+              f"kernel {got.err.max().item():.4g} plain {want.err.max().item():.4g} "
+              f"(threshold 1e-6); total cost rel err {cost_err:.3e} (tol "
+              f"{cost_tol:.0e}); marginal error "
+              f"rows/cols kernel {marg['kernel'][0]:.3e}/{marg['kernel'][1]:.3e} plain "
+              f"{marg['plain'][0]:.3e}/{marg['plain'][1]:.3e} (a, b up to "
+              f"{a.max().item():.3e}, {b.max().item():.3e}); largest entry difference "
+              f"{diff:.3e} of {top:.3e} "
+              + (f"(tol {SINKHORN_ENTRY_TOL:.0e} of the largest)" if gated else "(not gated)"),
+              flush=True)
+        check(iters[0] == iters[1], f"sinkhorn B={batch} N={n} M={m}: iterations {iters}")
+        check(bool(torch.isfinite(got.plan).all()), f"sinkhorn B={batch}: non-finite plan")
+        check(cost_err <= cost_tol,
+              f"sinkhorn B={batch} N={n} M={m}: total cost rel err {cost_err}")
+        check(not gated or diff <= SINKHORN_ENTRY_TOL * top,
+              f"sinkhorn B={batch} N={n} M={m}: largest entry difference {diff} of {top}")
+        for k in range(2):
+            limit = marg["plain"][k] * (1 + SINKHORN_MARGINAL_SLACK) + 1e-7
+            check(marg["kernel"][k] <= limit,
+                  f"sinkhorn B={batch} N={n} M={m}: marginal {k} {marg['kernel'][k]} > {limit}")
+        worst = max(worst, diff)
+        if (batch, n, m) == (1, 256, 256):
+            flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+            exps = 2.0 * n * m * int(got.num_iters.sum())
+            bytes_ms = (2 * cost.numel() + a.numel() + b.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+            ops_ms = exps / EXP_PER_S * 1e3
+            rows = {
+                "ms": time_ms(lambda: sinkhorn.sinkhorn_log_kernel(a, b, cost, **SINKHORN_PATH),
+                              flush, reps=10),
+                "plain_ms": time_ms(lambda: sinkhorn.sinkhorn_log_kernel_reference(
+                    a, b, cost, **SINKHORN_PATH), flush, reps=3),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                "library_ms": None,
+                "iters": int(got.num_iters.sum()),
+            }
+            del flush
+            print(f"sinkhorn time f32 N=M=256, {rows['iters']} iterations: kernel "
+                  f"{rows['ms']:.4f} ms, bound {rows['bound_ms']:.4f} ms ({rows['bound_by']}: "
+                  f"{exps:.3e} exponentials), plain {rows['plain_ms']:.4f} ms; no single "
+                  f"PyTorch call computes Sinkhorn", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    scales = torch.tensor([1.0, 0.5, 0.25, 0.1], device="cuda")
+    cost = torch.rand((4, 256, 256), generator=gen, device="cuda") * scales[:, None, None]
+    a = torch.full((4, 256), 1.0 / 256, device="cuda")
+    b = torch.rand((4, 256), generator=gen, device="cuda") + 0.5
+    b = b / b.sum(-1, keepdim=True)
+    got = sinkhorn.sinkhorn_log_kernel(a, b, cost, return_extra=True, **SINKHORN_WELL)
+    want = sinkhorn.sinkhorn_log_kernel_reference(a, b, cost, return_extra=True,
+                                                  **SINKHORN_WELL)
+    rel = ((got.plan - want.plan).abs().max() / want.plan.abs().max()).item()
+    iters = (got.num_iters.tolist(), want.num_iters.tolist())
+    print(f"sinkhorn check well-conditioned B=4 N=M=256 reg 0.05 threshold 1e-2: "
+          f"iterations kernel {iters[0]} plain {iters[1]}; max_abs_err over the largest "
+          f"entry {rel:.3e} (tol {SINKHORN_WELL_TOL:.0e})", flush=True)
+    check(iters[0] == iters[1] and len(set(iters[0])) > 1,
+          f"sinkhorn well-conditioned: iterations {iters} (must agree and differ)")
+    check(rel <= SINKHORN_WELL_TOL, f"sinkhorn well-conditioned: {rel}")
+    return worst, rows
+
+
+def mnist32_transport_model():
+    """The latent-transport gate's model: the AutoEncoder (capacity 4,
+    latent 4 x 4 x 64, residual add), no prior, PSNR."""
+    from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
+    from ot_vae_tpu_torch.models import VAE
+    from ot_vae_tpu_torch.networks import AutoEncoder
+
+    ae = AutoEncoder(1, 64, 32, 4, capacity=4, down_up_sample=True, residual="add")
+    return VAE(metrics=MetricCollection({"psnr": PSNR()}), autoencoder=ae, prior=None)
+
+
+def discrete_transport(model, device="cuda"):
+    """The gate's discrete LatentTransport: each channel's 4 x 4 map, one
+    operator for all, 256 codebook atoms, blur degradation."""
+    from ot_vae_tpu_torch.data import GaussianBlur
+    from ot_vae_tpu_torch.transport import DiscreteTransport, LatentTransport
+
+    return LatentTransport(
+        size=model.latent_size, transport_dims=(1, 2), transport_operator=DiscreteTransport,
+        transformations=GaussianBlur(5, sigma=1.5), common_operator=True, unpaired=True,
+        logging_prefix="discrete", num_samples_to_log=0, device=device,
+        operator_kwargs=dict(n_components=256, transport_type="mean", training_mode="mean",
+                             temperature=1e-2, kmeans_iter=0))
+
+
+def phase_mnist32_transport(attention, sinkhorn, seed: int, workdir: Path):
+    """The slice's main path: fit, test, save/load and restore serving."""
+    from ot_vae_tpu_torch.data import MNIST32
+    from ot_vae_tpu_torch.serving import InferenceEngine
+    from ot_vae_tpu_torch.trainer import Callback, Trainer
+
+    class SinkhornProbe(Callback):
+        """Sinkhorn launches at the end of each validation (after the
+        transport callback's fit)."""
+
+        def __init__(self):
+            self.per_epoch = []
+
+        def on_validation_epoch_start(self, trainer, model):
+            self._start = sinkhorn.launch_count
+
+        def on_validation_epoch_end(self, trainer, model):
+            self.per_epoch.append(sinkhorn.launch_count - self._start)
+
+    torch.manual_seed(seed)
+    dm = MNIST32(train_batch_size=50, val_batch_size=50, test_batch_size=50, seed=42,
+                 synthetic_train=2500, synthetic_test=2200, test_val_split=0.9)
+    start = time.perf_counter()
+    dm.setup()
+    data_s = time.perf_counter() - start
+    model = mnist32_transport_model()
+    cb, probe, logger = discrete_transport(model), SinkhornProbe(), _Recorder()
+    trainer = Trainer(max_epochs=MNIST_TRANSPORT_EPOCHS, seed=42, callbacks=[cb, probe],
+                      logger=logger, log_every_n_steps=1)
+    attention.launch_count = attention.backward_launch_count = sinkhorn.launch_count = 0
+    start = time.perf_counter()
+    trainer.fit(model, dm)
+    fit_launches = (attention.launch_count, attention.backward_launch_count,
+                    sinkhorn.launch_count)
+    test = trainer.test(model, dm)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    restored = cb.compute_test_metrics()
+    losses = [m["train/loss/total"] for _, m in logger.rows if "train/loss/total" in m]
+    costs = [m[cb.logging_prefix_full + "avg_transport_cost"] for _, m in logger.rows
+             if cb.logging_prefix_full + "avg_transport_cost" in m]
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    psnr, restored_psnr = test.get("test/metrics/psnr"), restored.get(
+        cb.logging_prefix_full + "psnr")
+    print(f"mnist32 transport: {len(losses)} steps, loss (mean of 10) {first:.4f} -> "
+          f"{last:.4f}; transport costs {costs}; Sinkhorn launches per validation "
+          f"{probe.per_epoch}; test PSNR {psnr:.3f} dB, restored (blur -> transport) "
+          f"PSNR {restored_psnr:.3f} dB; fit + test {run_s:.1f} s, synthetic data "
+          f"{data_s:.1f} s", flush=True)
+    check(len(losses) == MNIST_TRANSPORT_EPOCHS * dm.steps_per_epoch("train")
+          and all(math.isfinite(v) for v in losses) and last < first,
+          f"mnist32 transport: loss did not fall ({first} -> {last})")
+    check(len(costs) == MNIST_TRANSPORT_EPOCHS and all(math.isfinite(c) for c in costs),
+          f"mnist32 transport: transport costs {costs}")
+    check(probe.per_epoch == [1] * MNIST_TRANSPORT_EPOCHS,
+          f"mnist32 transport: Sinkhorn launches per validation {probe.per_epoch}")
+    check(psnr is not None and math.isfinite(psnr) and restored_psnr is not None
+          and math.isfinite(restored_psnr), f"mnist32 transport: test {test}, {restored}")
+
+    # save, load into a fresh callback and serve through restore: the path
+    # ends here, so its launches are read before the checks below run
+    path = workdir / "discrete_operator.npz"
+    workdir.mkdir(parents=True, exist_ok=True)
+    cb.save_state(path)
+    loaded = discrete_transport(model).load_state(path)
+    images = next(iter(dm.predict_batches()))[0][:64]  # raw 28 x 28 test images
+    engine = InferenceEngine(model, batch_sizes=(64,))
+    got = engine.restore(images, loaded, torch.Generator(device="cuda").manual_seed(11))
+    torch.cuda.synchronize()
+    launches = (attention.launch_count, attention.backward_launch_count,
+                sinkhorn.launch_count)
+    print(f"mnist32 transport launches (forward, backward, sinkhorn): fit {fit_launches}, "
+          f"fit + test + restore {launches}", flush=True)
+
+    # the loaded operator transports bit for bit as the fitted one
+    x = model.inference_preprocess(torch.as_tensor(images, device="cuda"))
+    z = model.eval_encode(x)
+    moved = [t.transport(z, torch.Generator(device="cuda").manual_seed(5))
+             for t in (cb, loaded)]
+    same = bool(torch.equal(moved[0], moved[1]))
+    # restore against the test-time path: encode, transport, decode
+    g = torch.Generator(device="cuda").manual_seed(11)
+    with torch.inference_mode():
+        want = model.inference_postprocess(model.eval_decode(cb.transport(
+            model.eval_encode(x, g), g))).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    print(f"mnist32 transport: save/load transports bit for bit: {same}; restore of "
+          f"{len(images)} test images vs encode -> transport -> decode: max_abs_err "
+          f"{err:.3e} (tol {tol:.1e})", flush=True)
+    check(same, "mnist32 transport: loaded operator transports differently")
+    check(got.shape == images.shape and bool(np.isfinite(got).all()) and err <= tol,
+          f"mnist32 transport: restore {got.shape} vs path, error {err}")
+
+    # the fitted operator's plan (the kernel's) against the plain version's
+    # on the same fitted codebooks, at the path's reg: total cost, then the
+    # test latents transported and restored through each plan
+    op, st = cb.operator, cb.state
+    m = op.source_model
+    cost = 1.0 / (m.energy(st.target.codebook, st.source.codebook) + 1e-8)
+    plain = sinkhorn.sinkhorn_log_kernel_reference(
+        m.weights(st.source), m.weights(st.target), cost, reg=op.sinkhorn_reg,
+        max_iter=op.sinkhorn_max_iter, threshold=op.sinkhorn_threshold)
+    totals = [float((cost * plan).sum()) for plan in (st.plan, plain)]
+    cost_err = abs(totals[0] - totals[1]) / abs(totals[1])
+    loaded.state = loaded.state.replace(plan=plain)
+    moved_plain = loaded.transport(z, torch.Generator(device="cuda").manual_seed(5))
+    with torch.inference_mode():
+        restored = [model.eval_decode(t) for t in (moved[0], moved_plain)]
+    lat_err = ((moved[0] - moved_plain).abs().max()
+               / max(1.0, moved_plain.abs().max().item())).item()
+    img_err = ((restored[0] - restored[1]).abs().max()
+               / max(1.0, restored[1].abs().max().item())).item()
+    print(f"mnist32 transport: fitted plan, kernel vs plain version: total cost "
+          f"{totals[0]:.6g} vs {totals[1]:.6g}, rel err {cost_err:.3e} (tol "
+          f"{SINKHORN_COST_RTOL:.0e}); largest entry difference "
+          f"{(st.plan - plain).abs().max().item():.3e} of {plain.abs().max().item():.3e} "
+          f"(not gated); transported latents max_abs_err over max(1, max|latent|) "
+          f"{lat_err:.3e} (tol {TRANSPORT_TOL:.0e}), restored images {img_err:.3e} (tol "
+          f"{TRANSPORT_TOL:.0e})", flush=True)
+    check(cost_err <= SINKHORN_COST_RTOL, f"mnist32 transport: fitted plan cost {totals}")
+    check(lat_err <= TRANSPORT_TOL and img_err <= TRANSPORT_TOL,
+          f"mnist32 transport: kernel vs plain plan, latents {lat_err}, images {img_err}")
+    return launches
+
+
+def phase_mnist32_vae(attention, seed: int):
+    """The MNIST32 VAE of configs/vae/defaults.yaml: 10 epochs of 24 steps
+    at batch 250 with clipped gradients, then Trainer.test."""
+    from ot_vae_tpu_torch.data import MNIST32
+    from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
+    from ot_vae_tpu_torch.models import VAE
+    from ot_vae_tpu_torch.networks import CNN
+    from ot_vae_tpu_torch.priors import GaussianPrior
+    from ot_vae_tpu_torch.trainer import Trainer
+
+    torch.manual_seed(seed)
+    model = VAE(CNN(1, 256, 32, 1, capacity=8, down_sample=True, residual="add"),
+                CNN(128, 1, 1, 32, capacity=8, up_sample=True, residual="add"),
+                GaussianPrior(loss_coeff=0.1), metrics=MetricCollection({"psnr": PSNR()}),
+                gradient_clip_val=MNIST_VAE_CLIP)
+    dm = MNIST32(train_batch_size=250, val_batch_size=250, test_batch_size=250, seed=42)
+    logger = _Recorder()
+    trainer = Trainer(max_epochs=MNIST_VAE_EPOCHS, seed=42, logger=logger,
+                      log_every_n_steps=1)
+    attention.launch_count = attention.backward_launch_count = 0
+    start = time.perf_counter()
+    trainer.fit(model, dm)
+    test = trainer.test(model, dm)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    losses = [m["train/loss/total"] for _, m in logger.rows if "train/loss/total" in m]
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    psnr = test.get("test/metrics/psnr", float("nan"))
+    print(f"mnist32 vae: {len(losses)} steps at batch 250, clip {MNIST_VAE_CLIP:g}, loss "
+          f"(mean of 10) {first:.4f} -> "
+          f"{last:.4f}, val PSNR {trainer.logged_metrics.get('val/metrics/psnr'):.3f} dB, "
+          f"test PSNR {psnr:.3f} dB; {run_s:.1f} s", flush=True)
+    check(len(losses) == MNIST_VAE_EPOCHS * dm.steps_per_epoch("train")
+          and all(math.isfinite(v) for v in losses) and last < first,
+          f"mnist32 vae: loss did not fall ({first} -> {last})")
+    check(math.isfinite(psnr), f"mnist32 vae: test PSNR {psnr}")
+    return attention.launch_count, attention.backward_launch_count
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -620,7 +1036,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ot_vae_tpu_torch.ops import _build, attention
+    from ot_vae_tpu_torch.ops import _build, attention, sinkhorn
 
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -643,6 +1059,12 @@ def main(argv=None) -> int:
         model, checkpoint, train_launches = phase_train(attention, args.seed, workdir)
         phase_serve_checkpoint(model, checkpoint, args.seed)
         shutil.rmtree(workdir, ignore_errors=True)
+        del model
+        small_worst = phase_small_heads(attention)
+        sk_worst, sk_timing = phase_sinkhorn(sinkhorn)
+        transport_launches = phase_mnist32_transport(attention, sinkhorn, args.seed, workdir)
+        shutil.rmtree(workdir, ignore_errors=True)
+        vae_launches = phase_mnist32_vae(attention, args.seed)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -653,9 +1075,12 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "ot_vae_tpu_torch/ops/csrc/attention_packed.cu",
         "replaces": "ot_vae_tpu/ops/attention_pallas.py:255",
-        "launches": launches + train_launches["forward"],
-        "launches_by_path": {"serve": launches, "train": train_launches["forward"]},
-        "max_abs_err": worst[torch.bfloat16],
+        "launches": (launches + train_launches["forward"] + transport_launches[0]
+                     + vae_launches[0]),
+        "launches_by_path": {"serve": launches, "train": train_launches["forward"],
+                             "mnist32_transport": transport_launches[0],
+                             "mnist32_vae": vae_launches[0]},
+        "max_abs_err": max(worst[torch.bfloat16], small_worst[("out", torch.bfloat16)]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -666,14 +1091,29 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "ot_vae_tpu_torch/ops/csrc/attention_packed_bwd.cu",
         "replaces": "ot_vae_tpu/ops/attention_pallas.py:279",
-        "launches": train_launches["backward"],
-        "launches_by_path": {"serve": 0, "train": train_launches["backward"]},
-        "max_abs_err": bwd_worst[torch.bfloat16],
+        "launches": train_launches["backward"] + transport_launches[1] + vae_launches[1],
+        "launches_by_path": {"serve": 0, "train": train_launches["backward"],
+                             "mnist32_transport": transport_launches[1],
+                             "mnist32_vae": vae_launches[1]},
+        "max_abs_err": max(bwd_worst[torch.bfloat16], small_worst[("dqkv", torch.bfloat16)]),
         "ms": bwd_shape["ms"],
         "plain_ms": bwd_shape["plain_ms"],
         "bound_ms": bwd_shape["bound_ms"],
         "bound_by": bwd_shape["bound_by"],
         "library_ms": bwd_shape["library_ms"],
+    }, {
+        "name": "sinkhorn_log",
+        "route": "cuda",
+        "source": "ot_vae_tpu_torch/ops/csrc/sinkhorn_log.cu",
+        "replaces": "ot_vae_tpu/ops/sinkhorn_pallas.py:39",
+        "launches": transport_launches[2],
+        "launches_by_path": {"mnist32_transport": transport_launches[2]},
+        "max_abs_err": sk_worst,
+        "ms": sk_timing["ms"],
+        "plain_ms": sk_timing["plain_ms"],
+        "bound_ms": sk_timing["bound_ms"],
+        "bound_by": sk_timing["bound_by"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,8 +2,11 @@
 
 Slice 1 serves the FFHQ128 CNN VAE (networks, the Gaussian prior, the
 inference transforms, the VAE and its ``InferenceEngine``); slice 2 trains
-it (``trainer``, ``metrics``, ``data``, checkpoints). Attention runs through
-hand-written CUDA kernels for its forward and backward (``ops/csrc``).
+it (``trainer``, ``metrics``, ``data``, checkpoints); slice 3 runs discrete
+latent transport on MNIST32 (``distributions``, ``transport``, the
+``AutoEncoder``, restoration serving). Attention runs through hand-written
+CUDA kernels for its forward and backward, and the transport's entropic OT
+through a hand-written log-domain Sinkhorn kernel (``ops/csrc``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 __version__ = "0.1.0"

@@ -7,6 +7,10 @@ HWIO → OIHW; batch-norm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``.
 :func:`state_dict_to_jax_variables` is the inverse, so tests can hold trained
 parameters and running statistics against the JAX package's key by key.
+
+A fitted discrete transport operator crosses as numpy arrays
+(:func:`discrete_transport_state`): the JAX ``DiscreteTransportState``'s
+codebook states, plan and fitted flag become the port's operator state.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 from torch import nn
 
 __all__ = ["jax_variables_to_state_dict", "load_jax_variables",
-           "state_dict_to_jax_variables"]
+           "state_dict_to_jax_variables", "discrete_transport_state"]
 
 _BATCH_NORM = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                "var": "running_var"}
@@ -89,3 +93,19 @@ def state_dict_to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, 
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(value)
     return variables
+
+
+def discrete_transport_state(state: Mapping[str, Any], operator, device="cpu"):
+    """A ``DiscreteTransportState`` of the JAX package, as nested mappings of
+    arrays, → the port's state for ``operator`` (a ``DiscreteTransport`` of
+    the same configuration; a shape that does not fit raises).
+
+    :param state: ``{"source": {"codebook", "n_obs", "s1", "initialized"},
+        "target": {...}, "plan": ..., "fitted": ...}``
+    """
+    arrays = {"plan": np.asarray(state["plan"]), "fitted": np.asarray(state["fitted"])}
+    for side in ("source", "target"):
+        for name, value in state[side].items():
+            arrays[f"{side}.{name}"] = np.asarray(value)
+    template = operator.init(torch.Generator().manual_seed(0))
+    return type(template).from_arrays(arrays, template, device=torch.device(device))

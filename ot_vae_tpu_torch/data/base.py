@@ -56,11 +56,13 @@ def dataset_split(images: np.ndarray, labels: np.ndarray, split: float,
 
 @dataclasses.dataclass
 class BaseDatamodule:
-    """Train and validation datasets, transforms and batch sizes (the test
-    and predict splits come with the loops that read them)."""
+    """Per-split datasets (train, val, test, predict), transforms and batch
+    sizes."""
 
     train_batch_size: int = 32
     val_batch_size: int = 256
+    test_batch_size: int = 256
+    predict_batch_size: int = 256
     seed: Optional[int] = None
     img_size: Optional[Tuple[int, int]] = None
     inference_preprocess: Transform = Identity()
@@ -68,6 +70,8 @@ class BaseDatamodule:
 
     train_dataset: Optional[ArrayDataset] = None
     val_dataset: Optional[ArrayDataset] = None
+    test_dataset: Optional[ArrayDataset] = None
+    predict_dataset: Optional[ArrayDataset] = None
 
     def setup(self) -> None:
         """Materialise the datasets; subclasses override."""
@@ -91,6 +95,12 @@ class BaseDatamodule:
 
     def val_batches(self):
         return self._loader("val")
+
+    def test_batches(self):
+        return self._loader("test")
+
+    def predict_batches(self):
+        return self._loader("predict")
 
     def steps_per_epoch(self, mode: str = "train") -> int:
         ds = self._dataset(mode)

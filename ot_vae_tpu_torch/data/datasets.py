@@ -1,38 +1,122 @@
-"""Image-folder datamodules (counterpart: ``ImageFolderData`` and
-``FFHQ128`` in ``ot_vae_tpu/data/datasets.py``).
+"""Named datamodules (counterpart: ``MNIST``, ``MNIST32``,
+``ImageFolderData`` and ``FFHQ128`` in ``ot_vae_tpu/data/datasets.py``).
 
-Images are read from a folder with PIL, which is imported only when a
-folder holds images. With ``synthetic_train``/``synthetic_test`` set, a
-missing folder falls back to the seeded :func:`synthetic_textures` at the
-module's resolution, as in the JAX package.
+MNIST is read from its idx files in the local cache (``$OT_VAE_DATA_CACHE``
+or ``~/.cache``, under ``MNIST/raw``) when they are there, else the seeded
+:func:`synthetic_digits` stand in; nothing is downloaded. Image folders are
+read with PIL, which is imported only when a folder holds images; with
+``synthetic_train``/``synthetic_test`` set, a missing folder falls back to
+the seeded :func:`synthetic_textures` at the module's resolution, as in the
+JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import os
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ot_vae_tpu_torch.data.base import ArrayDataset, BaseDatamodule, dataset_split
-from ot_vae_tpu_torch.data.synthetic import synthetic_textures
+from ot_vae_tpu_torch.data.synthetic import synthetic_digits, synthetic_textures
 from ot_vae_tpu_torch.data.transforms import (
     FFHQ128_MEAN,
     FFHQ128_STD,
+    CenterCrop,
+    Compose,
+    Identity,
     Normalize,
+    Pad,
     UnNormalize,
 )
 
-__all__ = ["ImageFolderData", "FFHQ128"]
+__all__ = ["MNIST", "MNIST32", "ImageFolderData", "FFHQ128"]
+
+
+def _cache_dir() -> Path:
+    """Dataset cache root: ``$OT_VAE_DATA_CACHE`` or ``~/.cache``, read at
+    each setup."""
+    return Path(os.environ.get("OT_VAE_DATA_CACHE", os.path.expanduser("~/.cache")))
+
+
+def _load_idx(path: Path) -> Optional[np.ndarray]:
+    """An (optionally gzipped) idx file, MNIST's format; None when unreadable."""
+    opener = gzip.open if path.suffix == ".gz" else open
+    try:
+        with opener(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    ndim = int.from_bytes(data[0:4], "big") & 0xFF
+    dims = [int.from_bytes(data[4 + 4 * i:8 + 4 * i], "big") for i in range(ndim)]
+    return np.frombuffer(data, np.uint8, offset=4 + 4 * ndim).reshape(dims)
+
+
+def _load_mnist_raw(train: bool) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    base = _cache_dir() / "MNIST" / "raw"
+    prefix = "train" if train else "t10k"
+    for suffix in ("", ".gz"):
+        imgs = _load_idx(base / f"{prefix}-images-idx3-ubyte{suffix}")
+        labs = _load_idx(base / f"{prefix}-labels-idx1-ubyte{suffix}")
+        if imgs is not None and labs is not None:
+            return imgs.astype(np.float32)[..., None] / 255.0, labs.astype(np.int32)
+    return None
+
+
+@dataclasses.dataclass
+class MNIST(BaseDatamodule):
+    """28×28 grey digits normalised with MNIST's mean and std; ``pad`` zero-
+    pads them after normalising (and the inference post-transform crops
+    back). The validation split is the ``test_val_split`` share of the test
+    set, the test split the rest; predict reads the whole test set raw."""
+
+    MEAN: Tuple[float, ...] = (0.1307,)
+    STD: Tuple[float, ...] = (0.3081,)
+    pad: int = 0
+    synthetic_train: int = 6000
+    synthetic_test: int = 1000
+    test_val_split: float = 0.9
+
+    def __post_init__(self):
+        norm = [Normalize(self.MEAN, self.STD)]
+        denorm = [UnNormalize(self.MEAN, self.STD)]
+        if self.pad:
+            norm.append(Pad(self.pad))
+            denorm.insert(0, CenterCrop(28))
+        self.img_size = (28 + 2 * self.pad, 28 + 2 * self.pad)
+        self.inference_preprocess = Compose(norm)
+        self.inference_postprocess = Compose(denorm)
+        self._transform = Compose(norm)
+
+    def setup(self) -> None:
+        if self.train_dataset is not None:
+            return
+        train, test = _load_mnist_raw(True), _load_mnist_raw(False)
+        if train is None or test is None:
+            train = synthetic_digits(self.synthetic_train, seed=1)
+            test = synthetic_digits(self.synthetic_test, seed=2)
+        self.train_dataset = ArrayDataset(*train, self._transform)
+        (vi, vl), (ti, tl) = dataset_split(*test, self.test_val_split, self.seed)
+        self.val_dataset = ArrayDataset(vi, vl, self._transform)
+        self.test_dataset = ArrayDataset(ti, tl, self._transform)
+        self.predict_dataset = ArrayDataset(*test, Identity())
+
+
+@dataclasses.dataclass
+class MNIST32(MNIST):
+    """MNIST padded to 32×32, a power of two for the CNN schedule."""
+
+    pad: int = 2
 
 
 @dataclasses.dataclass
 class ImageFolderData(BaseDatamodule):
     """Folder-of-images datamodule; images are resized to ``size`` and
     normalised with (MEAN, STD). ``root`` is (train folder, test folder);
-    the validation split is the ``test_val_split`` share of the test folder
-    (the rest is the JAX package's test split, which no loop reads yet).
+    the validation split is the ``test_val_split`` share of the test folder,
+    the test split the rest; predict reads the whole test folder raw.
     """
 
     root: Tuple[str, str] = ("", "")
@@ -78,8 +162,10 @@ class ImageFolderData(BaseDatamodule):
             train = synthetic_textures(self.synthetic_train, seed=1, size=self.size)
             test = synthetic_textures(self.synthetic_test, seed=2, size=self.size)
         self.train_dataset = ArrayDataset(*train, self._transform)
-        (vi, vl), _ = dataset_split(*test, self.test_val_split, self.seed)
+        (vi, vl), (ti, tl) = dataset_split(*test, self.test_val_split, self.seed)
         self.val_dataset = ArrayDataset(vi, vl, self._transform)
+        self.test_dataset = ArrayDataset(ti, tl, self._transform)
+        self.predict_dataset = ArrayDataset(*test, Identity())
 
 
 @dataclasses.dataclass

@@ -1,7 +1,10 @@
 """Transforms on NHWC tensors or numpy arrays
 (counterpart: ``ot_vae_tpu/data/transforms.py``), their JSON specs for the
 checkpoint sidecar, and the FFHQ128 normalisation constants
-(``ot_vae_tpu/data/datasets.py``, class ``FFHQ128``)."""
+(``ot_vae_tpu/data/datasets.py``, class ``FFHQ128``).
+
+A transform is called as ``t(x, generator=None)``: the JAX package's take
+``(x, key)``; the port's take a ``torch.Generator`` where they draw."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +12,10 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-__all__ = ["Transform", "Identity", "Compose", "Normalize", "UnNormalize",
-           "FFHQ128_MEAN", "FFHQ128_STD", "ffhq128_transforms", "to_spec", "from_spec"]
+__all__ = ["Transform", "Identity", "Compose", "Normalize", "UnNormalize", "Pad",
+           "CenterCrop", "GaussianBlur", "FFHQ128_MEAN", "FFHQ128_STD", "ffhq128_transforms", "to_spec", "from_spec"]
 
 FFHQ128_MEAN: Tuple[float, ...] = (0.5207, 0.4254, 0.3805)
 FFHQ128_STD: Tuple[float, ...] = (0.1164, 0.1110, 0.1162)
@@ -27,13 +31,13 @@ def _constants(x, *values):
 
 @dataclasses.dataclass(frozen=True)
 class Transform:
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x, generator=None):
         raise NotImplementedError
 
 
 @dataclasses.dataclass(frozen=True)
 class Identity(Transform):
-    def __call__(self, x):
+    def __call__(self, x, generator=None):
         return x
 
 
@@ -44,9 +48,9 @@ class Compose(Transform):
     def __init__(self, transforms: Sequence[Transform]):
         object.__setattr__(self, "transforms", tuple(transforms))
 
-    def __call__(self, x):
+    def __call__(self, x, generator=None):
         for t in self.transforms:
-            x = t(x)
+            x = t(x, generator)
         return x
 
 
@@ -57,7 +61,7 @@ class Normalize(Transform):
     mean: Tuple[float, ...]
     std: Tuple[float, ...]
 
-    def __call__(self, x):
+    def __call__(self, x, generator=None):
         mean, std = _constants(x, self.mean, self.std)
         return (x - mean) / std
 
@@ -69,9 +73,67 @@ class UnNormalize(Transform):
     mean: Tuple[float, ...]
     std: Tuple[float, ...]
 
-    def __call__(self, x):
+    def __call__(self, x, generator=None):
         mean, std = _constants(x, self.mean, self.std)
         return x * std + mean
+
+
+@dataclasses.dataclass(frozen=True)
+class Pad(Transform):
+    """Zero-pad H and W by ``padding`` on each side (torchvision T.Pad)."""
+
+    padding: int
+
+    def __call__(self, x, generator=None):
+        p = self.padding
+        if isinstance(x, np.ndarray):
+            return np.pad(x, [(0, 0)] * (x.ndim - 3) + [(p, p), (p, p), (0, 0)])
+        return F.pad(x, (0, 0, p, p, p, p))
+
+
+@dataclasses.dataclass(frozen=True)
+class CenterCrop(Transform):
+    """Center-crop H and W to ``size`` (torchvision T.CenterCrop)."""
+
+    size: int
+
+    def __call__(self, x, generator=None):
+        h, w = x.shape[-3], x.shape[-2]
+        top, left = (h - self.size) // 2, (w - self.size) // 2
+        return x[..., top:top + self.size, left:left + self.size, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianBlur(Transform):
+    """Depthwise Gaussian blur with a fixed sigma (torchvision T.GaussianBlur),
+    the degradation of the latent-transport experiments. Runs on the input's
+    device; draws nothing, so ``generator`` is unused."""
+
+    kernel_size: int
+    sigma: float
+
+    def _kernel(self) -> np.ndarray:
+        k = self.kernel_size
+        ax = np.arange(k) - (k - 1) / 2.0
+        g = np.exp(-0.5 * (ax / self.sigma) ** 2)
+        g /= g.sum()
+        return np.outer(g, g).astype(np.float32)
+
+    def __call__(self, x, generator=None):
+        as_numpy = isinstance(x, np.ndarray)
+        t = torch.from_numpy(x) if as_numpy else x
+        squeeze = t.dim() == 3
+        if squeeze:
+            t = t[None]
+        c = t.shape[-1]
+        k = self.kernel_size
+        weight = torch.from_numpy(self._kernel()).to(t.device, t.dtype)
+        weight = weight.expand(c, 1, k, k)
+        pad = (k - 1) // 2
+        nchw = F.pad(t.permute(0, 3, 1, 2), (pad, k - 1 - pad, pad, k - 1 - pad))
+        out = F.conv2d(nchw, weight, groups=c).permute(0, 2, 3, 1)
+        out = out[0] if squeeze else out
+        return out.contiguous().numpy() if as_numpy else out.contiguous()
 
 
 def ffhq128_transforms() -> Tuple[Normalize, UnNormalize]:
@@ -79,7 +141,8 @@ def ffhq128_transforms() -> Tuple[Normalize, UnNormalize]:
     return Normalize(FFHQ128_MEAN, FFHQ128_STD), UnNormalize(FFHQ128_MEAN, FFHQ128_STD)
 
 
-_REGISTRY = {cls.__name__: cls for cls in (Identity, Normalize, UnNormalize)}
+_REGISTRY = {cls.__name__: cls for cls in (Identity, Normalize, UnNormalize, Pad,
+                                            CenterCrop, GaussianBlur)}
 
 
 def to_spec(t: Transform) -> dict:

@@ -41,7 +41,8 @@ class VisionModel(nn.Module):
     inputs pass through ``inference_preprocess`` and outputs through
     ``inference_postprocess``.
 
-    :param metrics: a ``MetricCollection`` the trainer's validation updates
+    :param metrics: a ``MetricCollection`` the trainer's validation and test
+        loops update (as ``val_metrics`` and ``test_metrics``)
     :param monitor: metric name (under ``val/metrics/``) the LR plateau and
         the callbacks watch, ``mode`` "max" or "min"
     :param learning_rate: Adam's initial learning rate
@@ -63,6 +64,7 @@ class VisionModel(nn.Module):
         self.net = net
         self.metrics = metrics
         self.val_metrics = metrics.clone("val/metrics/") if metrics is not None else None
+        self.test_metrics = metrics.clone("test/metrics/") if metrics is not None else None
         self.monitor = monitor
         self.mode = mode
         self.learning_rate = learning_rate

@@ -1,10 +1,15 @@
 """VAE (counterpart: ``ot_vae_tpu/models/vae.py``).
 
-``VAENet`` is encoder → prior → decoder on NHWC tensors; ``VAE`` wraps it
-with the inference transforms, the nELBO loss the trainer minimises and the
-eval forward its validation runs. Train or eval mode follows
-``module.training``: in train mode the batch norms use and update batch
-statistics.
+``VAENet`` is encoder → prior → decoder on NHWC tensors, from an
+encoder and a decoder or from one ``autoencoder`` that holds both; ``VAE``
+wraps it with the inference transforms, the nELBO loss the trainer
+minimises and the eval forward its validation runs. Train or eval mode
+follows ``module.training``: in train mode the batch norms use and update
+batch statistics.
+
+Where no generator and no ε are given, ``forward`` and ``encode`` draw ε
+from a fresh generator seeded 0 on every call, as the JAX package uses
+``PRNGKey(0)`` there: two calls on one input agree.
 """
 from __future__ import annotations
 
@@ -14,18 +19,27 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ot_vae_tpu_torch.models.base import VisionModel
+from ot_vae_tpu_torch.models.base import VisionModel, seeded_generator
 from ot_vae_tpu_torch.utils import mean_replicated_batch, replicate_batch
 
 __all__ = ["VAENet", "VAE"]
 
 
 class VAENet(nn.Module):
-    """Encoder → prior (reparametrize + loss) → decoder."""
+    """Encoder → prior (reparametrize + loss) → decoder. Pass ``encoder`` and
+    ``decoder``, or an ``autoencoder`` with ``encode`` and ``decode`` (its
+    parameters then sit under ``autoencoder.``, as in the JAX tree)."""
 
-    def __init__(self, encoder: nn.Module, decoder: nn.Module,
-                 prior: Optional[nn.Module] = None):
+    def __init__(self, encoder: Optional[nn.Module] = None,
+                 decoder: Optional[nn.Module] = None,
+                 prior: Optional[nn.Module] = None,
+                 autoencoder: Optional[nn.Module] = None):
         super().__init__()
+        if autoencoder is None and (encoder is None or decoder is None):
+            raise ValueError("Set `autoencoder` or (`encoder` and `decoder`)")
+        if autoencoder is not None and (encoder is not None or decoder is not None):
+            raise ValueError("Setting both `autoencoder` and `encoder`/`decoder` is ambiguous")
+        self.autoencoder = autoencoder
         self.encoder = encoder
         self.decoder = decoder
         self.prior = prior
@@ -33,7 +47,8 @@ class VAENet(nn.Module):
     @property
     def latent_size(self) -> Tuple[int, ...]:
         """(H, W, C) of the latent after the prior."""
-        enc_out = tuple(self.encoder.out_size)
+        enc_out = tuple(self.autoencoder.latent_size if self.autoencoder is not None
+                        else self.encoder.out_size)
         return enc_out if self.prior is None else tuple(self.prior.out_size(enc_out))
 
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -41,14 +56,29 @@ class VAENet(nn.Module):
                step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False):
         """z, or (z, per-sample prior loss, artifacts) with ``return_artifacts``.
         The batch is replicated ``expand``× before the draw."""
-        enc = replicate_batch(self.encoder(x), expand)
+        return self.reparametrize(self.features(x), generator, noise, expand, step,
+                                  return_artifacts)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder's output, before the prior."""
+        return self.autoencoder.encode(x) if self.autoencoder is not None else self.encoder(x)
+
+    def reparametrize(self, enc: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None, expand: int = 1,
+                      step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False):
+        """The prior's draw of z from the encoder's output; see ``encode``."""
+        enc = replicate_batch(enc, expand)
         if self.prior is None:
             z, loss, artifacts = enc, enc.new_zeros(enc.shape[0]), {}
         else:
+            if generator is None and noise is None:
+                generator = seeded_generator(0, enc.device)  # JAX: PRNGKey(0)
             z, loss, artifacts = self.prior(enc, step, generator=generator, noise=noise)
         return (z, loss, artifacts) if return_artifacts else z
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
+        if self.autoencoder is not None:
+            return self.autoencoder.decode(z)
         return self.decoder(z)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -77,13 +107,16 @@ class VAE(VisionModel):
         term takes the mean of the replicas' reconstructions
     """
 
-    def __init__(self, encoder: nn.Module, decoder: nn.Module,
+    def __init__(self, encoder: Optional[nn.Module] = None,
+                 decoder: Optional[nn.Module] = None,
                  prior: Optional[nn.Module] = None, metrics=None,
-                 monitor: str = "psnr", mode: str = "max", expansion: int = 1, learning_rate: float = 1e-3,
+                 monitor: str = "psnr", mode: str = "max", expansion: int = 1,
+                 learning_rate: float = 1e-3,
                  ema_decay: Optional[float] = None, checkpoints=None,
-                 gradient_clip_val: Optional[float] = None):
-        super().__init__(VAENet(encoder, decoder, prior), metrics, monitor, mode,
-                         learning_rate, ema_decay, gradient_clip_val, checkpoints)
+                 gradient_clip_val: Optional[float] = None,
+                 autoencoder: Optional[nn.Module] = None):
+        super().__init__(VAENet(encoder, decoder, prior, autoencoder), metrics, monitor,
+                         mode, learning_rate, ema_decay, gradient_clip_val, checkpoints)
         self.expansion = expansion
 
     @property
@@ -93,9 +126,10 @@ class VAE(VisionModel):
     # ------------------------------------------------------------ training
 
     def batch_preprocess(self, batch, train: bool = True) -> Dict[str, torch.Tensor]:
-        """(samples, labels) → {'samples', 'target'}."""
+        """(samples, labels) → {'samples', 'target', 'kwargs'}; the kwargs
+        (labels for a conditional model) arrive with the conditional slice."""
         samples = batch[0]
-        return {"samples": samples, "target": samples}
+        return {"samples": samples, "target": samples, "kwargs": {}}
 
     def recon_loss(self, reconstructions: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         acc = torch.promote_types(reconstructions.dtype, torch.float32)
@@ -131,11 +165,31 @@ class VAE(VisionModel):
         return loss, logs, outputs
 
     @torch.no_grad()
-    def eval_forward(self, pbatch: Dict[str, torch.Tensor],
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Full forward in eval mode (running statistics)."""
+    def eval_outputs(self, pbatch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None,
+                     latent_generator: Optional[torch.Generator] = None):
+        """(preds, latents) of the eval step in eval mode (running
+        statistics): the full forward with ε from ``generator`` and the
+        latents (the JAX ``encode_fn``) with ε from ``latent_generator``,
+        both drawn from one pass of the encoder."""
         self.net.eval()
-        return self.net(pbatch["samples"], generator)
+        enc = self.net.features(pbatch["samples"])
+        preds = self.net.decode(self.net.reparametrize(enc, generator))
+        return preds, self.net.reparametrize(enc, latent_generator)
+
+    @torch.no_grad()
+    def eval_encode(self, samples: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Latents in eval mode, the eval step's ``latents`` (the JAX
+        ``encode_fn``)."""
+        self.net.eval()
+        return self.net.encode(samples, generator)
+
+    @torch.no_grad()
+    def eval_decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Decoded latents in eval mode (the JAX ``decode_fn``)."""
+        self.net.eval()
+        return self.net.decode(latents)
 
     # ------------------------------------------------------------ user API
 

@@ -23,7 +23,7 @@ from ot_vae_tpu_torch.networks.nets_utils import (
     spatial_attention,
 )
 
-__all__ = ["ConvLayer", "Conv1x1", "AttentionBlock", "ConvBlock", "CNN",
+__all__ = ["ConvLayer", "Conv1x1", "AttentionBlock", "ConvBlock", "CNN", "AutoEncoder",
            "get_channel_list", "get_block_scaling"]
 
 
@@ -253,3 +253,59 @@ class CNN(nn.Module):
         for bi in range(self.n_blocks):
             x = getattr(self, f"ConvBlock_{bi}")(x)
         return x.permute(0, 2, 3, 1)
+
+
+class AutoEncoder(nn.Module):
+    """Encoder and decoder CNN pair (counterpart: ``AutoEncoder``,
+    ``ot_vae_tpu/networks/cnn.py``). ``latent_size`` = (H, W, C); with
+    ``double_encoded_features`` the encoder emits twice the latent channels
+    (a prior's mean and log-variance). The class and time embeddings arrive
+    with AutoDiffusion and DAD (slice 7)."""
+
+    def __init__(self, in_features: int, latent_features: int,
+                 in_resolution: Optional[int] = None,
+                 latent_resolution: Optional[int] = None,
+                 intermediate_features: Optional[Sequence[int]] = None,
+                 capacity: int = 8, max_attn_res: int = 16,
+                 num_classes: Optional[int] = None,
+                 time_embed_dim: Optional[int] = None,
+                 double_encoded_features: bool = False, n_layers: int = 2,
+                 residual: Optional[str] = None,
+                 down_up_sample: Union[bool, int] = False,
+                 normalization: Optional[str] = "batchnorm",
+                 activation: Optional[str] = "relu",
+                 equalized_lr: Optional[float] = None, dropout: float = 0.0,
+                 kernel_size: int = 3, groups: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if num_classes or time_embed_dim:
+            raise NotImplementedError(
+                "num_classes and time_embed_dim: the AutoEncoder's class and time "
+                "embeddings arrive with AutoDiffusion and DAD (slice 7, ROADMAP)")
+        self.latent_features = latent_features
+        self.double_encoded_features = double_encoded_features
+        encoded = latent_features * (1 + int(double_encoded_features))
+        self.latent_size = (latent_resolution, latent_resolution, encoded)
+        common = dict(capacity=capacity, max_attn_res=max_attn_res, n_layers=n_layers,
+                      residual=residual, normalization=normalization,
+                      activation=activation, equalized_lr=equalized_lr,
+                      kernel_size=kernel_size, groups=groups, use_bias=use_bias,
+                      dropout=dropout, dtype=dtype)
+        self.encoder = CNN(in_features, encoded, in_resolution, latent_resolution,
+                           intermediate_features, down_sample=down_up_sample, **common)
+        self.decoder = CNN(latent_features, in_features, latent_resolution, in_resolution,
+                           None if intermediate_features is None
+                           else list(intermediate_features)[::-1],
+                           up_sample=down_up_sample, **common)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.encode(x)
+        if self.double_encoded_features:
+            z = z[..., :self.latent_features]  # the mean half
+        return self.decode(z)

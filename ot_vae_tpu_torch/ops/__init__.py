@@ -6,6 +6,14 @@ from ot_vae_tpu_torch.ops.attention import (
     attention_packed_reference,
     fused_attention_packed,
 )
+from ot_vae_tpu_torch.ops.sinkhorn import (
+    sinkhorn_log_auto,
+    sinkhorn_log_kernel,
+    sinkhorn_log_kernel_reference,
+)
+from ot_vae_tpu_torch.ops.w2 import sinkhorn_log
 
 __all__ = ["attention_packed", "attention_packed_reference", "attention_packed_backward",
-           "attention_packed_backward_reference", "fused_attention_packed"]
+           "attention_packed_backward_reference", "fused_attention_packed",
+           "sinkhorn_log_auto", "sinkhorn_log_kernel", "sinkhorn_log_kernel_reference",
+           "sinkhorn_log"]

@@ -23,6 +23,11 @@ CUDA-core FMAs far above it. :func:`fused_attention_packed` ties the two
 together in a ``torch.autograd.Function``, as ``_fused_packed.defvjp`` does in
 the JAX package, saving ``(qkv, out, lse)`` as its residuals.
 
+Both kernels take every head dim C from 1 to 128 and every T ≥ 1: C a
+multiple of 8 runs a kernel built for that width, any other C one built for
+the next power of two with the tail dims masked. The JAX package's d % 8
+rule was a Mosaic lane rule of the TPU, not a rule of the function.
+
 A CPU tensor takes the plain versions (:func:`attention_packed_reference`,
 :func:`attention_packed_backward_reference`); a CUDA tensor launches the
 kernels or raises. There is no fallback between them.
@@ -131,9 +136,9 @@ def attention_packed_backward_reference(
 def _check_kernel_input(x: torch.Tensor, ch: int, what: str):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what}: attention kernels take float32 or bfloat16, got {x.dtype}")
-    if ch % 8 or ch > _MAX_HEAD_DIM:
-        raise ValueError(f"{what}: attention kernels take head dims that are multiples "
-                         f"of 8 up to {_MAX_HEAD_DIM}, got {ch}")
+    if not 1 <= ch <= _MAX_HEAD_DIM:
+        raise ValueError(f"{what}: attention kernels take head dims 1 to "
+                         f"{_MAX_HEAD_DIM}, got {ch}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: attention kernels take contiguous tensors")
 

@@ -30,6 +30,12 @@
 // the TPU kernel and the plain PyTorch version do; sums are f32 on CUDA-core
 // FMAs over exactly converted inputs.
 //
+// Head dims. Every C from 1 to 128 is taken, as in the forward kernel: a
+// multiple of 8 runs the kernels built for that width; any other C runs on
+// the next padded width of 1, 2, 4, 8, 16, 32, 64 or 128 (`kTail`), with
+// loads masked past C (zeros in registers and shared memory, which add
+// nothing to the products) and the tail dims of dqkv not written.
+//
 // What bounds it: at the FFHQ128 decoder's block at the train batch (B=128,
 // H=2, C=64, T=1024, bf16) the backward needs 10*T^2*C*B*H = 1.7e11 FLOP
 // against 270 MB of input and output, so the card's bound is the
@@ -49,7 +55,7 @@ constexpr int kTile = 32;  // rows of the streamed operands per shared-memory ti
 
 template <int C>
 struct Split {
-  static_assert(C % 8 == 0 && C <= 128, "head dim must be a multiple of 8, at most 128");
+  static_assert(C >= 1 && C <= 128, "head dim must be 1 to 128");
   static constexpr int kRowThreads = C <= 16 ? 1 : C <= 32 ? 2 : C <= 64 ? 4 : 8;
   static constexpr int kDims = C / kRowThreads;   // dims each thread owns
   static constexpr int kRows = kThreads / kRowThreads;  // rows per block
@@ -80,34 +86,38 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // copy kTile rows of C values at column `col` of rows r0.. into shared memory
-// as f32; rows past `seq` become zeros
+// as f32; rows past `seq` and dims past `cw` become zeros
 template <typename T, int C>
 __device__ __forceinline__ void fill_tile(float (*tile)[C], const T* base,
-                                          int64_t stride, int col, int r0, int seq) {
+                                          int64_t stride, int col, int r0, int seq,
+                                          int cw) {
   for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
     const int r = i / C;
     const int c = i % C;
-    tile[r][c] = r0 + r < seq ? to_float(base[(r0 + r) * stride + col + c]) : 0.f;
+    tile[r][c] = r0 + r < seq && c < cw ? to_float(base[(r0 + r) * stride + col + c]) : 0.f;
   }
 }
 
-template <typename T, int C>
+// C is the width the kernels are built for; `ch` the head dim of the
+// tensors, equal to C unless kTail (then ch <= C, the dims past ch masked)
+template <typename T, int C, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 attention_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
                            const float* __restrict__ lse, const T* __restrict__ dout,
                            T* __restrict__ dqkv, float* __restrict__ delta,
-                           int seq, int heads, float scale) {
+                           int seq, int heads, int ch, float scale) {
   using S = Split<C>;
   constexpr int R = S::kRowThreads;
   __shared__ float k_tile[kTile][C];
   __shared__ float v_tile[kTile][C];
 
+  const int cw = kTail ? ch : C;  // the tensors' head dim
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int row = blockIdx.x * S::kRows + threadIdx.x / R;
   const int part = threadIdx.x % R;
-  const int64_t width = 3LL * heads * C;
-  const int64_t o_width = static_cast<int64_t>(heads) * C;
+  const int64_t width = 3LL * heads * cw;
+  const int64_t o_width = static_cast<int64_t>(heads) * cw;
   const T* qkv_b = qkv + static_cast<int64_t>(b) * seq * width;
   const bool valid = row < seq;
   const int64_t stat = (static_cast<int64_t>(b) * seq + row) * heads + h;
@@ -122,11 +132,12 @@ attention_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
     dq[i] = 0.f;
   }
   if (valid) {
-    const T* q_row = qkv_b + row * width + h * C;
-    const int64_t o_off = (static_cast<int64_t>(b) * seq + row) * o_width + h * C;
+    const T* q_row = qkv_b + row * width + h * cw;
+    const int64_t o_off = (static_cast<int64_t>(b) * seq + row) * o_width + h * cw;
 #pragma unroll
     for (int i = 0; i < S::kDims; ++i) {
       const int c = part + R * i;
+      if (kTail && c >= cw) continue;
       q[i] = to_float(q_row[c]);
       d_o[i] = to_float(dout[o_off + c]);
       partial = fmaf(d_o[i], to_float(out[o_off + c]), partial);
@@ -138,8 +149,8 @@ attention_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
 
   for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();  // the previous tiles are consumed
-    fill_tile<T, C>(k_tile, qkv_b, width, heads * C + h * C, k0, seq);
-    fill_tile<T, C>(v_tile, qkv_b, width, 2 * heads * C + h * C, k0, seq);
+    fill_tile<T, C>(k_tile, qkv_b, width, heads * cw + h * cw, k0, seq, cw);
+    fill_tile<T, C>(v_tile, qkv_b, width, 2 * heads * cw + h * cw, k0, seq, cw);
     __syncthreads();
     const int n_keys = min(kTile, seq - k0);
 #pragma unroll 2
@@ -161,16 +172,18 @@ attention_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
   }
 
   if (!valid) return;
-  T* dq_row = dqkv + static_cast<int64_t>(b) * seq * width + row * width + h * C;
+  T* dq_row = dqkv + static_cast<int64_t>(b) * seq * width + row * width + h * cw;
 #pragma unroll
-  for (int i = 0; i < S::kDims; ++i) store(dq_row + part + R * i, dq[i]);
+  for (int i = 0; i < S::kDims; ++i)
+    if (!kTail || part + R * i < cw) store(dq_row + part + R * i, dq[i]);
 }
 
-template <typename T, int C>
+template <typename T, int C, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 attention_packed_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
                              const T* __restrict__ dout, const float* __restrict__ delta,
-                             T* __restrict__ dqkv, int seq, int heads, float scale) {
+                             T* __restrict__ dqkv, int seq, int heads, int ch,
+                             float scale) {
   using S = Split<C>;
   constexpr int R = S::kRowThreads;
   __shared__ float q_tile[kTile][C];
@@ -178,18 +191,19 @@ attention_packed_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict_
   __shared__ float lse_tile[kTile];
   __shared__ float delta_tile[kTile];
 
+  const int cw = kTail ? ch : C;  // the tensors' head dim
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int row = blockIdx.x * S::kRows + threadIdx.x / R;  // key row
   const int part = threadIdx.x % R;
-  const int64_t width = 3LL * heads * C;
-  const int64_t o_width = static_cast<int64_t>(heads) * C;
+  const int64_t width = 3LL * heads * cw;
+  const int64_t o_width = static_cast<int64_t>(heads) * cw;
   const T* qkv_b = qkv + static_cast<int64_t>(b) * seq * width;
   const T* dout_b = dout + static_cast<int64_t>(b) * seq * o_width;
   const float* lse_b = lse + static_cast<int64_t>(b) * seq * heads;
   const float* delta_b = delta + static_cast<int64_t>(b) * seq * heads;
-  const int k_col = heads * C + h * C;
-  const int v_col = 2 * heads * C + h * C;
+  const int k_col = heads * cw + h * cw;
+  const int v_col = 2 * heads * cw + h * cw;
   const bool valid = row < seq;
 
   float k[S::kDims], v[S::kDims], dk[S::kDims], dv[S::kDims];
@@ -204,6 +218,7 @@ attention_packed_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict_
     const T* key_row = qkv_b + row * width;
 #pragma unroll
     for (int i = 0; i < S::kDims; ++i) {
+      if (kTail && part + R * i >= cw) continue;
       k[i] = to_float(key_row[k_col + part + R * i]);
       v[i] = to_float(key_row[v_col + part + R * i]);
     }
@@ -211,8 +226,8 @@ attention_packed_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict_
 
   for (int q0 = 0; q0 < seq; q0 += kTile) {
     __syncthreads();  // the previous tiles are consumed
-    fill_tile<T, C>(q_tile, qkv_b, width, h * C, q0, seq);
-    fill_tile<T, C>(do_tile, dout_b, o_width, h * C, q0, seq);
+    fill_tile<T, C>(q_tile, qkv_b, width, h * cw, q0, seq, cw);
+    fill_tile<T, C>(do_tile, dout_b, o_width, h * cw, q0, seq, cw);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       const bool in = q0 + i < seq;
       lse_tile[i] = in ? lse_b[static_cast<int64_t>(q0 + i) * heads + h] : 0.f;
@@ -246,26 +261,28 @@ attention_packed_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict_
   T* d_row = dqkv + static_cast<int64_t>(b) * seq * width + row * width;
 #pragma unroll
   for (int i = 0; i < S::kDims; ++i) {
+    if (kTail && part + R * i >= cw) continue;
     store(d_row + k_col + part + R * i, dk[i]);
     store(d_row + v_col + part + R * i, dv[i]);
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool kTail>
 cudaError_t launch(const void* qkv, const void* out, const float* lse, const void* dout,
-                   void* dqkv, float* delta, int batch, int seq, int heads, float scale,
-                   cudaStream_t stream) {
+                   void* dqkv, float* delta, int batch, int seq, int heads, int head_dim,
+                   float scale, cudaStream_t stream) {
   constexpr int kRows = Split<C>::kRows;
   const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
   // the dq kernel writes D, which the dk/dv kernel reads: same stream, in order
-  attention_packed_dq_kernel<T, C><<<grid, kThreads, 0, stream>>>(
+  attention_packed_dq_kernel<T, C, kTail><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(out), lse,
-      static_cast<const T*>(dout), static_cast<T*>(dqkv), delta, seq, heads, scale);
+      static_cast<const T*>(dout), static_cast<T*>(dqkv), delta, seq, heads, head_dim,
+      scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_packed_dkdv_kernel<T, C><<<grid, kThreads, 0, stream>>>(
+  attention_packed_dkdv_kernel<T, C, kTail><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(qkv), lse, static_cast<const T*>(dout), delta,
-      static_cast<T*>(dqkv), seq, heads, scale);
+      static_cast<T*>(dqkv), seq, heads, head_dim, scale);
   return cudaGetLastError();
 }
 
@@ -273,16 +290,30 @@ template <typename T>
 cudaError_t dispatch(int head_dim, const void* qkv, const void* out, const float* lse,
                      const void* dout, void* dqkv, float* delta, int batch, int seq,
                      int heads, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-#define CASE(C) \
-  case C:       \
-    return launch<T, C>(qkv, out, lse, dout, dqkv, delta, batch, seq, heads, scale, stream);
-    CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64)
-    CASE(72) CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120) CASE(128)
-#undef CASE
+#define CASE(C, TAIL)                                                                \
+  case C:                                                                           \
+    return launch<T, C, TAIL>(qkv, out, lse, dout, dqkv, delta, batch, seq, heads, \
+                              head_dim, scale, stream);
+  if (head_dim % 8 == 0) {
+    switch (head_dim) {
+      CASE(8, false) CASE(16, false) CASE(24, false) CASE(32, false)
+      CASE(40, false) CASE(48, false) CASE(56, false) CASE(64, false)
+      CASE(72, false) CASE(80, false) CASE(88, false) CASE(96, false)
+      CASE(104, false) CASE(112, false) CASE(120, false) CASE(128, false)
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (head_dim < 1 || head_dim > 128) return cudaErrorInvalidValue;
+  int padded = 1;
+  while (padded < head_dim) padded *= 2;
+  switch (padded) {
+    CASE(1, true) CASE(2, true) CASE(4, true) CASE(8, true)
+    CASE(16, true) CASE(32, true) CASE(64, true) CASE(128, true)
     default:
       return cudaErrorInvalidValue;
   }
+#undef CASE
 }
 
 }  // namespace

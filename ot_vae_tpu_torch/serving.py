@@ -3,7 +3,9 @@
 Requests are padded up to the nearest batch bucket, so the card sees a few
 fixed shapes; raw images are normalised and outputs un-normalised with the
 model's inference transforms. Every endpoint runs under
-``torch.inference_mode()``.
+``torch.inference_mode()``. ``restore`` serves latent-transport
+restoration: encode degraded images, transport their latents through a
+fitted ``LatentTransport``, decode.
 """
 from __future__ import annotations
 
@@ -119,6 +121,21 @@ class InferenceEngine:
         out = self.model.net(x, generator, self._noise(noise, x.shape[0]))
         return self._out(self.model.inference_postprocess(out), n)
 
-    def restore(self, images, transport, generator=None):
-        raise NotImplementedError(
-            "restore: latent transport arrives with the latent-transport slice")
+    @torch.inference_mode()
+    def restore(self, images, transport, generator: Optional[torch.Generator] = None
+                ) -> np.ndarray:
+        """Restoration: encode raw degraded images (padded to the bucket),
+        flatten, transport and unflatten their latents through a fitted
+        ``LatentTransport`` (in this process, or read with its
+        ``load_state``), decode. The request's ``generator`` (else the
+        engine's default draw) serves the encoder's ε and then the
+        transport's draw; the callback's own generator is not touched."""
+        if transport.state is None:
+            raise ValueError(
+                "transport has no fitted state — fit it during training or "
+                "load one with LatentTransport.load_state()")
+        x, n = self._images(images)
+        generator = generator if generator is not None else self._default_generator()
+        z = self.model.net.encode(x, generator)
+        out = self.model.net.decode(transport.transport(z, generator))
+        return self._out(self.model.inference_postprocess(out), n)

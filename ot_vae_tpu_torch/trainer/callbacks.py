@@ -1,6 +1,9 @@
 """Callback protocol and the built-in callbacks
 (counterpart: ``ot_vae_tpu/trainer/callbacks.py``). ``Collage`` comes with
-slice 9."""
+slice 9.
+
+The validation and test loops hand ``on_*_batch_end`` the eval step's
+outputs: ``samples``, ``target``, ``kwargs``, ``preds`` and ``latents``."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +27,9 @@ class Callback:
     def on_validation_epoch_start(self, trainer, model): ...
     def on_validation_batch_end(self, trainer, model, outputs, batch, batch_idx): ...
     def on_validation_epoch_end(self, trainer, model): ...
+    def on_test_epoch_start(self, trainer, model): ...
+    def on_test_batch_end(self, trainer, model, outputs, batch, batch_idx): ...
+    def on_test_epoch_end(self, trainer, model): ...
 
 
 def _signed(trainer, model, monitor: Optional[str], mode: Optional[str]):

@@ -2,7 +2,8 @@
 
 ``fit`` runs epochs of train steps, validates with the model's metrics,
 drives ReduceLROnPlateau on the monitored metric, and calls the callbacks
-at the same hook points as the JAX trainer. A train step is: nELBO and its
+at the same hook points as the JAX trainer; ``validate``, ``test`` and
+``predict`` run the eval loops on their own. A train step is: nELBO and its
 gradients (the batch norms in train mode), optional global-norm clipping,
 Adam, the EMA update and the step counter.
 
@@ -84,6 +85,7 @@ class Trainer:
         self.global_step = 0
         self.should_stop = False
         self.logged_metrics: Dict[str, float] = {}
+        self.first_val_batch = None
         self.monitor = None
 
     # ------------------------------------------------------------ utilities
@@ -192,36 +194,86 @@ class Trainer:
 
     # ------------------------------------------------------------ evaluation
 
-    def _run_validation(self, model, datamodule):
-        """One pass over the validation batches in eval mode (the EMA
-        parameters swapped in where the model keeps them), the metrics
-        computed, logged and kept in ``logged_metrics``."""
-        if model.val_metrics is None and not self.callbacks:
-            return {}
-        metrics = model.val_metrics
+    def _run_eval_loop(self, model, batches, metrics, mode: str, use_ema: bool):
+        """One pass over ``batches`` in eval mode (the EMA parameters swapped
+        in with ``use_ema``): the eval step's outputs go to the callbacks and
+        the metrics, which are computed, logged and kept in
+        ``logged_metrics``. ``mode`` is "val" or "test"."""
+        hook = "validation" if mode == "val" else "test"
         prev_inference = model.inference
         model.inference = True
         states = metrics.init(self.device) if metrics is not None else None
-        self._hook("on_validation_epoch_start", model)
-        swap = self.state.ema_swapped() if model.ema_decay is not None else contextlib.nullcontext()
+        self._hook(f"on_{hook}_epoch_start", model)
+        swap = self.state.ema_swapped() if use_ema else contextlib.nullcontext()
+        first_batch = None
         with swap:
-            for batch_idx, batch in enumerate(datamodule.val_batches()):
+            for batch_idx, batch in enumerate(batches):
                 if self.limit_batches is not None and batch_idx >= self.limit_batches:
                     break
+                if first_batch is None:
+                    first_batch = batch
                 pbatch = model.batch_preprocess(self._put(batch), train=False)
-                gen = self.generator(2, self.current_epoch, batch_idx)
-                outputs = {**pbatch, "preds": model.eval_forward(pbatch, gen)}
+                salt = 2 if mode == "val" else 3
+                preds, latents = model.eval_outputs(
+                    pbatch, self.generator(salt, self.current_epoch, batch_idx),
+                    self.generator(salt, self.current_epoch, batch_idx, 1))
+                outputs = {**pbatch, "preds": preds, "latents": latents}
                 if states is not None:
                     states = metrics.update(states, **outputs)
-                self._hook("on_validation_batch_end", model, outputs, batch, batch_idx)
+                self._hook(f"on_{hook}_batch_end", model, outputs, batch, batch_idx)
+        if mode == "val":
+            self.first_val_batch = first_batch
         results = {}
         if states is not None:
             results = {k: float(v) for k, v in metrics.compute(states).items()}
             self.logged_metrics.update(results)
             self.logger.log_metrics(results, self.global_step)
-        self._hook("on_validation_epoch_end", model)
+        self._hook(f"on_{hook}_epoch_end", model)
         model.inference = prev_inference
         return results
+
+    def _run_validation(self, model, datamodule):
+        if model.val_metrics is None and not self.callbacks:
+            return {}
+        return self._run_eval_loop(model, datamodule.val_batches(), model.val_metrics,
+                                   "val", model.ema_decay is not None)
+
+    def _adopt_model(self, model):
+        """Eval without a fit: move the model to the device and wrap it in a
+        state (no EMA copy)."""
+        if self.state is None:
+            model.to(self.device, memory_format=torch.channels_last)
+            self.state = TrainState.create(model.net, model.optimizer(), None)
+            if self.monitor is None:
+                self.monitor = "val/metrics/" + model.monitor
+
+    def validate(self, model, datamodule):
+        """One validation pass; the metrics by name."""
+        self._adopt_model(model)
+        return self._run_validation(model, datamodule)
+
+    def test(self, model, datamodule):
+        """One pass over the test split with the model's ``test_metrics``
+        and the callbacks' test hooks; the metrics by name."""
+        self._adopt_model(model)
+        use_ema = model.ema_decay is not None and self.state.ema_params is not None
+        return self._run_eval_loop(model, datamodule.test_batches(), model.test_metrics,
+                                   "test", use_ema)
+
+    @torch.no_grad()
+    def predict(self, model, datamodule) -> List[torch.Tensor]:
+        """The model's forward (inference transforms applied, ε from the
+        fixed default draw) on each predict batch, in eval mode."""
+        self._adopt_model(model)
+        prev_inference = model.inference
+        model.inference = True
+        model.net.eval()
+        outs = []
+        for batch in datamodule.predict_batches():
+            pbatch = model.batch_preprocess(self._put(batch), train=False)
+            outs.append(model(pbatch["samples"]))
+        model.inference = prev_inference
+        return outs
 
     # ------------------------------------------------------------ LR plateau
 

@@ -496,6 +496,29 @@ def test_fit_checkpoint_serves_the_trained_model(tmp_path):
         assert torch.equal(p, trainer.state.ema_params[name])
 
 
+def test_eval_outputs_encode_once(setup):
+    """The eval step's preds and latents come from one encoder pass, with ε
+    from their own generators: the same tensors as the full forward and a
+    separate encode in eval mode (the JAX eval step's ``eval_forward`` and
+    ``encode_fn``, which XLA computes from one encoder pass too)."""
+    _, variables, _, _ = setup
+    pm = _port_model(variables)
+    x = torch.from_numpy(_images(BATCH, 30))
+    calls = []
+    pm.net.encoder.register_forward_hook(lambda *_: calls.append(1))
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    preds, latents = pm.eval_outputs({"samples": x, "target": x, "kwargs": {}},
+                                     gen(5), gen(6))
+    assert len(calls) == 1
+    with torch.no_grad():
+        assert torch.equal(preds, pm.net(x, gen(5)))
+        assert torch.equal(latents, pm.net.encode(x, gen(6)))
+    assert not torch.equal(preds, pm.net.decode(latents))  # ε drawn twice
+
+
 def test_state_dict_round_trips_through_the_jax_layout(setup):
     _, variables, _, _ = setup
     pm = _port_model(variables)

@@ -4,6 +4,8 @@ The same small encoder/decoder pair (capacity 8, 16² ↔ 4², attention with
 head dim 8) is built in JAX, carried across with convert.py, and both sides
 get the same inputs and the same noise: JAX's ε is handed to the port.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -245,8 +247,25 @@ def test_engine_later_slices_raise(pair):
     _, pm = pair
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         InferenceEngine(pm, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="latent-transport"):
-        InferenceEngine(pm, device="cpu").restore(_images(1, 0), None)
+    # restore is served now (tests/test_torch_transport.py); without a fitted
+    # operator it raises as the JAX engine does
+    with pytest.raises(ValueError, match="no fitted state"):
+        InferenceEngine(pm, device="cpu").restore(_images(1, 0),
+                                                  types.SimpleNamespace(state=None))
+
+
+def test_forward_and_encode_without_a_generator_agree(pair):
+    """With neither a generator nor ε, forward and encode draw ε from a fresh
+    generator seeded 0 on every call, as the JAX package uses PRNGKey(0):
+    two calls on one input agree."""
+    _, pm = pair
+    x = torch.from_numpy(_images(2, 16))
+    with torch.inference_mode():
+        assert torch.equal(pm(x), pm(x))
+        z = pm.encode(x)
+        assert torch.equal(z, pm.encode(x))
+        assert torch.equal(z, pm.encode(x, seeded_generator(0, "cpu")))
+        assert not torch.equal(z, pm.encode(x, seeded_generator(1, "cpu")))
 
 
 def test_converter_is_strict(pair):
