@@ -57,7 +57,28 @@ toolkit. Phases, each printing one line:
    cost, the test latents transported and restored through each);
 13. MNIST32 VAE (configs/vae/defaults.yaml, capacity 8, latent 1 x 1 x 128)
    trains 240 steps at batch 250, gradients clipped at a global norm of 1.0,
-   and Trainer.test reports its PSNR.
+   and Trainer.test reports its PSNR;
+14. BTHD and BHTC kernels: the BTHD attention forward kernel (row 7) against
+   its plain version at the two ViTs' four attention shapes (B=64), a cross
+   shape (Tq != Tk), a ragged T with an odd head dim, causal, with a seeded
+   post-softmax multiplier and both, bf16 and f32; the BHTC kernel (row 3,
+   the same source) at the self-attention shapes in [B, H, T, d]; the times
+   of both at the FFHQ128 ViT's two shapes beside the bound, the plain
+   version and SDPA (a yardstick only); then the fused_attention entry, the
+   only way to row 3 (no model path reaches it), driven at the ViTs' shapes;
+15. serve the conditional CIFAR10 ViT VAE (configs/vae/vit.yaml, full
+   width, seeded random weights, f32) through InferenceEngine with labels
+   from the seeded CIFAR10 fallback at buckets (1, 8, 64): shapes,
+   finiteness, 3 BTHD launches per encode, decode and sample and 6 per
+   reconstruct, a padded request's rows against the same rows in a full
+   bucket, and img/s per endpoint at bucket 64;
+16. serve the FFHQ128 ViT VAE (configs/vae/vit_ffhq128.yaml, full width and
+   depth, bf16 activations, f32 parameters) at bucket 64 on the seeded
+   FFHQ128 fallback: 8/8/16/8 BTHD launches per encode, decode,
+   reconstruct and sample, and img/s per endpoint;
+17. whole ViT path, f32 on the card against the port on the CPU: both ViT
+   VAEs reconstruct a few images with the same ε and labels; then the
+   FFHQ128 ViT as served, bf16 on the card against bf16 on the CPU.
 
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.
@@ -190,6 +211,58 @@ MNIST_VAE_EPOCHS = 10
 # has gone non-finite on the card; clipped at 1.0 every seed measured stayed
 # finite (scripts/recipe_divergence.py fit, PERF.md §6)
 MNIST_VAE_CLIP = 1.0
+# row-7 checks as (B, Tq, Tk, H, d, causal, mult): the FFHQ128 ViT encoder
+# and decoder and the conditional CIFAR10 ViT encoder and decoder (every
+# attention call of both served models), a cross shape, a ragged T with an
+# odd head dim, causal, the multiplier, and causal with the multiplier at
+# d = 40, 96 and 128 (the ViTs' head dim). Causal rows read the highest bf16
+# max_rel_err: an early row averages few keys, so its entries are of v's size
+# while the RMS that a small entry's error is divided by is that of the whole
+# output, whose late rows average many keys and are smaller
+BTHD_SHAPES = [(64, 1024, 1024, 4, 128, False, False), (64, 1024, 1024, 2, 128, False, False),
+               (64, 19, 19, 4, 32, False, False), (64, 18, 18, 4, 32, False, False),
+               (16, 77, 300, 3, 64, False, False), (16, 37, 37, 5, 13, False, False),
+               (16, 200, 200, 2, 64, True, False), (16, 150, 150, 2, 96, False, True),
+               (8, 129, 129, 3, 40, True, True), (8, 150, 150, 2, 96, True, True),
+               (8, 150, 150, 2, 128, True, True)]
+BTHD_KEEP = 0.9  # keep probability of the seeded multiplier (mask / keep)
+# rows 7 and 3 take the gates of row 1 (BF16_REL_TOL, OUT_TOL, LSE_TOL); on an
+# H100 bf16 read max_rel_err 1.13e-2 to 2.82e-2 (causal with the multiplier
+# at d = 128 the largest) and f32 max abs 5.4e-7 to 1.8e-6 over these shapes
+# (PERF.md)
+# the conditional CIFAR10 ViT VAE of configs/vae/vit.yaml
+CIFAR_VIT_ENCODER = dict(image_size=32, patch_size=8, dim=128, depth=3, heads=4,
+                         channels=3, num_classes=10, n_embed_tokens=2,
+                         output_tokens="embed", patch_to_embed=True, embed_to_patch=False)
+CIFAR_VIT_DECODER = dict(image_size=32, patch_size=8, dim=128, depth=3, heads=4,
+                         channels=3, num_classes=10, n_embed_tokens=None, n_input_tokens=1,
+                         output_tokens="embed", patch_to_embed=False, embed_to_patch=True)
+CIFAR_VIT_PRIOR = dict(dim=(1, 128), num_classes=10, loss_coeff=0.1, reparam_dim=-2,
+                       annealing_steps=1000)
+# the FFHQ128 ViT VAE of configs/vae/vit_ffhq128.yaml
+FFHQ_VIT_ENCODER = dict(image_size=128, patch_size=4, dim=512, depth=8, head_dim=128,
+                        channels=3, dropout=0.0, n_embed_tokens=0, output_tokens="input",
+                        patch_to_embed=True)
+FFHQ_VIT_DECODER = dict(image_size=128, patch_size=4, dim=256, depth=8, head_dim=128,
+                        channels=3, dropout=0.0, n_embed_tokens=0, n_input_tokens=1024,
+                        output_tokens="input", patch_to_embed=False, embed_to_patch=True)
+# a padded request's rows against the same rows of a full bucket, max abs
+# error over max(1, max|output|): the same shapes run the same kernels and
+# GEMM algorithms, and no row reads another, so the rows agree to rounding
+PAD_TOL = 1e-5
+# whole ViT path, f32 on the card (TF32 off) against the port on the CPU,
+# max abs error over max(1, max|output|): the same function with sums in
+# other orders through 6 (CIFAR10) and 16 (FFHQ128) post-LN blocks
+# (measured 6.6e-7 and 5.4e-7 on an H100)
+VIT_PATH_TOL = 1e-4
+# the FFHQ128 ViT as served (bf16 activations, f32 parameters), card against
+# the port's bf16 path on the CPU, max abs and RMS error over max(1,
+# max|output|): every layer rounds its output to bf16 (2^-8 of itself), and
+# sums in other orders round some entries the other way, through 16 post-LN
+# blocks. On an H100 they read 7.8e-3 and 1.3e-3 at an output range of 0.875
+# (PERF.md); the limits are about four times that
+VIT_BF16_PATH_TOL = 3e-2
+VIT_BF16_PATH_RMS_TOL = 5e-3
 
 class CheckFailed(Exception):
     pass
@@ -1022,6 +1095,309 @@ def phase_mnist32_vae(attention, seed: int):
     return attention.launch_count, attention.backward_launch_count
 
 
+def _bthd_inputs(gen, b, tq, tk, h, d, mult, dtype):
+    q = torch.randn((b, tq, h * d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, tk, h * d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, tk, h * d), generator=gen, device="cuda").to(dtype)
+    m = None
+    if mult:
+        keep = torch.rand((tq, tk), generator=gen, device="cuda") < BTHD_KEEP
+        m = (keep.float() / BTHD_KEEP).to(dtype)
+    return q, k, v, m
+
+
+def _bhtc(x: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, T, H·d] → a contiguous [B, H, T, d] copy."""
+    b, t, width = x.shape
+    return x.view(b, t, h, width // h).transpose(1, 2).contiguous()
+
+
+def _gate(name, dtype, got, ref, lse, ref_lse):
+    """Check one kernel output against its plain version; return the max abs
+    error of out."""
+    err = (got.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    rel = max_rel_err(got, ref, 1)
+    if dtype == torch.bfloat16:
+        gate, ok = f"max_rel_err={rel:.3e} (tol {BF16_REL_TOL:.1e})", rel <= BF16_REL_TOL
+    else:
+        gate, ok = f"(tol {OUT_TOL:.1e})", err <= OUT_TOL
+    print(f"{name}: out max_abs_err={err:.3e} {gate} lse max_abs_err={lse_err:.3e} "
+          f"(tol {LSE_TOL:.1e})", flush=True)
+    check(math.isfinite(err) and ok, f"{name}: abs {err}, rel {rel}")
+    check(math.isfinite(lse_err) and lse_err <= LSE_TOL, f"{name}: lse {lse_err}")
+    return err
+
+
+def phase_bthd(attention):
+    """Rows 7 and 3 against their plain versions; their times at the FFHQ128
+    ViT's shapes; the fused_attention entry's launches at the ViTs' shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    worst = {"bthd": 0.0, "bhtc": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for b, tq, tk, h, d, causal, mult in BTHD_SHAPES:
+            q, k, v, m = _bthd_inputs(gen, b, tq, tk, h, d, mult, dtype)
+            scale = 1.0 / math.sqrt(d)
+            out, lse = attention.attention_bthd(q, k, v, h, scale, causal, m)
+            torch.cuda.synchronize()
+            ref, ref_lse = attention.attention_bthd_reference(q, k, v, h, scale, causal, m)
+            shape = (f"B={b} Tq={tq} Tk={tk} H={h} d={d}" + (" causal" if causal else "")
+                     + (" mult" if mult else ""))
+            err = _gate(f"bthd check {name} {shape}", dtype, out, ref, lse, ref_lse)
+            if dtype == torch.bfloat16:
+                worst["bthd"] = max(worst["bthd"], err)
+            if tq == tk and not (causal or mult):
+                qb, kb, vb = (_bhtc(x, h) for x in (q, k, v))
+                out, lse = attention.attention_bhtc(qb, kb, vb, scale)
+                torch.cuda.synchronize()
+                ref, ref_lse = attention.attention_bhtc_reference(qb, kb, vb, scale)
+                err = _gate(f"bhtc check {name} B={b} H={h} T={tq} d={d}", dtype, out, ref,
+                            lse, ref_lse)
+                if dtype == torch.bfloat16:
+                    worst["bhtc"] = max(worst["bhtc"], err)
+            del q, k, v, m, out, lse, ref, ref_lse
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = {}
+    for h in (4, 2):  # the FFHQ128 ViT's encoder and decoder layers
+        b, t, d, dtype = 64, 1024, 128, torch.bfloat16
+        q, k, v, _ = _bthd_inputs(gen, b, t, t, h, d, False, dtype)
+        qb, kb, vb = (_bhtc(x, h) for x in (q, k, v))
+        scale = 1.0 / math.sqrt(d)
+        # q, k, v read once, out written once (2 bytes an entry), lse (f32)
+        n_bytes = 4 * q.numel() * q.element_size() + b * h * t * 4
+        flops = 4.0 * t * t * d * b * h
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        bound = {"bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
+        library_ms = time_ms(lambda: sdpa(qb, kb, vb, scale=scale), flush=flush)
+        timings[("bthd", h)] = {
+            "ms": time_ms(lambda: attention.attention_bthd(q, k, v, h, scale), flush=flush),
+            "plain_ms": time_ms(lambda: attention.attention_bthd_reference(
+                q, k, v, h, scale), flush=flush, reps=10),
+            "library_ms": library_ms, **bound}
+        timings[("bhtc", h)] = {
+            "ms": time_ms(lambda: attention.attention_bhtc(qb, kb, vb, scale), flush=flush),
+            "plain_ms": time_ms(lambda: attention.attention_bhtc_reference(
+                qb, kb, vb, scale), flush=flush, reps=10),
+            "library_ms": library_ms, **bound}
+        for kind in ("bthd", "bhtc"):
+            row = timings[(kind, h)]
+            print(f"{kind} time bf16 B={b} T={t} H={h} d={d}: kernel {row['ms']:.4f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.3e} FLOP, "
+                  f"{n_bytes / 1e6:.1f} MB), plain {row['plain_ms']:.4f} ms, sdpa "
+                  f"{row['library_ms']:.4f} ms; {flops / row['ms'] / 1e9:.1f} TFLOP/s",
+                  flush=True)
+        del q, k, v, qb, kb, vb
+    del flush
+
+    # the fused_attention entry (row 3) at the ViTs' self-attention shapes,
+    # as a caller holding [B, H, T, d] tensors would reach it
+    attention.bhtc_launch_count = 0
+    for b, tq, tk, h, d, causal, mult in BTHD_SHAPES[:4]:
+        x = torch.randn((b, h, tq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out = attention.fused_attention(x, x, x)
+        torch.cuda.synchronize()
+        check(out.shape == x.shape and bool(torch.isfinite(out).all()),
+              f"fused_attention B={b} H={h} T={tq} d={d}")
+    entry_launches = attention.bhtc_launch_count
+    check(entry_launches == 4, f"fused_attention launched row 3 {entry_launches} times, "
+                               f"expected 4")
+    print(f"fused_attention entry at the ViTs' 4 shapes: row 3 launches {entry_launches}",
+          flush=True)
+    return worst, timings, entry_launches
+
+
+def _serve_rates(calls, n):
+    rates = {}
+    for kind, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        reps = 5
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()  # returns host numpy: each call ends synchronised
+        rates[kind] = n * reps / (time.perf_counter() - start)
+    return rates
+
+
+def _serve_checked(attention, engine, requests, expected):
+    """Run (kind, fn, shape) requests with the row-7 count set to 0 before
+    and read after each; return the outputs and the total launches."""
+    attention.bthd_launch_count = 0
+    packed = attention.launch_count
+    seen, outs = 0, []
+    for kind, fn, shape in requests:
+        out = fn()
+        torch.cuda.synchronize()
+        launched = attention.bthd_launch_count - seen
+        seen = attention.bthd_launch_count
+        check(out.shape == shape, f"{kind}: shape {out.shape} != {shape}")
+        check(bool(np.isfinite(out).all()), f"{kind}: non-finite output")
+        check(launched == expected[kind],
+              f"{kind}: BTHD kernel launched {launched} times, expected {expected[kind]}")
+        outs.append(out)
+    check(attention.launch_count == packed, "the ViT path launched the packed kernel")
+    total = sum(expected[kind] for kind, _, _ in requests)
+    check(attention.bthd_launch_count == total,
+          f"row 7 launched {attention.bthd_launch_count} times, expected {total}")
+    return outs, attention.bthd_launch_count
+
+
+def cifar_vit_vae(seed: int, dtype=torch.float32):
+    """The conditional CIFAR10 ViT VAE of configs/vae/vit.yaml, weights from
+    ``seed``."""
+    from ot_vae_tpu_torch.data import cifar10_transforms
+    from ot_vae_tpu_torch.models import VAE
+    from ot_vae_tpu_torch.networks.vit import ViT
+    from ot_vae_tpu_torch.priors import ConditionalGaussianPrior
+
+    torch.manual_seed(seed)
+    model = VAE(ViT(**CIFAR_VIT_ENCODER, dtype=dtype), ViT(**CIFAR_VIT_DECODER, dtype=dtype),
+                ConditionalGaussianPrior(**CIFAR_VIT_PRIOR), conditional=True)
+    model.inference_preprocess, model.inference_postprocess = cifar10_transforms()
+    return model
+
+
+def ffhq_vit_vae(seed: int, dtype=torch.bfloat16):
+    """The FFHQ128 ViT VAE of configs/vae/vit_ffhq128.yaml, weights from
+    ``seed`` (f32 parameters, ``dtype`` activations)."""
+    from ot_vae_tpu_torch.data import ffhq128_transforms
+    from ot_vae_tpu_torch.models import VAE
+    from ot_vae_tpu_torch.networks.vit import ViT
+    from ot_vae_tpu_torch.priors import GaussianPrior
+
+    torch.manual_seed(seed)
+    model = VAE(ViT(**FFHQ_VIT_ENCODER, dtype=dtype), ViT(**FFHQ_VIT_DECODER, dtype=dtype),
+                GaussianPrior(loss_coeff=0.1, reparam_dim=-1))
+    model.inference_preprocess, model.inference_postprocess = ffhq128_transforms()
+    return model
+
+
+def phase_serve_cifar_vit(attention, seed: int):
+    """The conditional CIFAR10 ViT VAE through the engine with labels."""
+    from ot_vae_tpu_torch.data import CIFAR10
+    from ot_vae_tpu_torch.serving import InferenceEngine
+
+    dm = CIFAR10(seed=42)
+    dm.setup()
+    images, labels = dm.test_dataset.images, dm.test_dataset.labels
+    engine = InferenceEngine(cifar_vit_vae(seed), batch_sizes=(1, 8, 64))
+    latent = engine.model.latent_size
+    rng = np.random.default_rng(seed + 2)
+    eps = rng.standard_normal((8, *latent)).astype(np.float32)
+    expected = {"reconstruct": 6, "encode": 3, "decode": 3, "sample": 3}
+    z = engine.encode(images[:8], labels=labels[:8])
+    requests = [("reconstruct", lambda n=n: engine.reconstruct(images[:n], labels=labels[:n]),
+                 (n, 32, 32, 3)) for n in (1, 5, 64)]
+    requests += [
+        ("encode", lambda: engine.encode(images[:8], labels=labels[:8]), (8, *latent)),
+        ("decode", lambda: engine.decode(z, labels=labels[:8]), (8, 32, 32, 3)),
+        ("sample", lambda: engine.sample(8, labels=labels[:8]), (8, 32, 32, 3))]
+    _, launches = _serve_checked(attention, engine, requests, expected)
+
+    # a request of 5 is padded into bucket 8: its rows against the same rows
+    # of a full request of 8 with other images after them, the same ε
+    padded = engine.reconstruct(images[:5], noise=eps[:5], labels=labels[:5])
+    full = engine.reconstruct(np.concatenate([images[:5], images[100:103]]), noise=eps,
+                              labels=np.concatenate([labels[:5], labels[100:103]]))
+    pad_err = float(np.abs(padded - full[:5]).max()) / max(1.0, float(np.abs(full).max()))
+    check(pad_err <= PAD_TOL, f"CIFAR10 ViT: padded rows moved by {pad_err}")
+    print(f"serve CIFAR10 ViT f32 full width: reconstruct 1/5/64, encode 8, decode 8, "
+          f"sample 8 ok with labels; row-7 launches {launches}; padded request vs full "
+          f"bucket max_abs_err over max(1, range) {pad_err:.3e} (tol {PAD_TOL:.0e})",
+          flush=True)
+
+    z64 = engine.encode(images[:64], labels=labels[:64])
+    rates = _serve_rates({
+        "reconstruct": lambda: engine.reconstruct(images[:64], labels=labels[:64]),
+        "encode": lambda: engine.encode(images[:64], labels=labels[:64]),
+        "decode": lambda: engine.decode(z64, labels=labels[:64]),
+        "sample": lambda: engine.sample(64, labels=labels[:64])}, 64)
+    print("serve CIFAR10 ViT img/s at bucket 64 (f32): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
+    return launches, engine
+
+
+def phase_serve_ffhq_vit(attention, seed: int):
+    """The FFHQ128 ViT VAE at bucket 64, bf16 activations."""
+    from ot_vae_tpu_torch.data import FFHQ128
+    from ot_vae_tpu_torch.serving import InferenceEngine
+
+    dm = FFHQ128(synthetic_train=64, synthetic_test=128, seed=42)
+    dm.setup()
+    images = dm.predict_dataset.images[:64]
+    engine = InferenceEngine(ffhq_vit_vae(seed), batch_sizes=(1, 8, 64))
+    latent = engine.model.latent_size
+    expected = {"reconstruct": 16, "encode": 8, "decode": 8, "sample": 8}
+    z = engine.encode(images)
+    requests = [("reconstruct", lambda: engine.reconstruct(images), (64, 128, 128, 3)),
+                ("encode", lambda: engine.encode(images), (64, *latent)),
+                ("decode", lambda: engine.decode(z), (64, 128, 128, 3)),
+                ("sample", lambda: engine.sample(64), (64, 128, 128, 3))]
+    _, launches = _serve_checked(attention, engine, requests, expected)
+    print(f"serve FFHQ128 ViT bf16 full width: reconstruct, encode, decode, sample at 64 "
+          f"ok; row-7 launches {launches}", flush=True)
+    rates = _serve_rates({"reconstruct": lambda: engine.reconstruct(images),
+                          "encode": lambda: engine.encode(images),
+                          "decode": lambda: engine.decode(z),
+                          "sample": lambda: engine.sample(64)}, 64)
+    print("serve FFHQ128 ViT img/s at bucket 64 (bf16): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
+    return launches, engine
+
+
+def phase_vit_whole_path(cifar_engine, ffhq_engine, seed: int):
+    """Both ViT VAEs in f32 on the card (the kernel, TF32 off) against the
+    port on the CPU (the plain version), with the same ε and labels."""
+    from ot_vae_tpu_torch.serving import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 3)
+    # (name, engine, builder, images, size, kwargs, the served dtype)
+    cases = [("CIFAR10 ViT", cifar_engine, cifar_vit_vae, 4, 32, {"labels": np.array(
+        [0, 3, 7, 9], np.int32)}, torch.float32),
+             ("FFHQ128 ViT", ffhq_engine, ffhq_vit_vae, 2, 128, {}, torch.bfloat16)]
+    for name, engine, build, n, size, kwargs, served in cases:
+        state = {k: v.cpu() for k, v in engine.model.state_dict().items()}
+        images = rng.uniform(0, 1, (n, size, size, 3)).astype(np.float32)
+        noise = rng.standard_normal((n, *engine.model.latent_size)).astype(np.float32)
+
+        def reconstruct(device, dtype):
+            model = build(seed, dtype)
+            model.load_state_dict(state, strict=True)
+            return InferenceEngine(model, batch_sizes=(n,), device=device).reconstruct(
+                images, noise=noise, **kwargs)
+
+        ref = reconstruct("cpu", torch.float32)
+        out = reconstruct("cuda", torch.float32)
+        err = float(np.abs(out - ref).max())
+        tol = VIT_PATH_TOL * max(1.0, float(np.abs(ref).max()))
+        print(f"whole path {name} f32 card vs CPU, reconstruct {n}: max_abs_err={err:.3e} "
+              f"(tol {tol:.3e}, output range {np.abs(ref).max():.3f})", flush=True)
+        check(bool(np.isfinite(out).all()) and err <= tol,
+              f"whole path {name}: card vs CPU {err} > {tol}")
+        if served == torch.float32:
+            continue
+        # the served dtype: bf16 on the card against bf16 on the CPU
+        ref16, out16 = reconstruct("cpu", served), reconstruct("cuda", served)
+        err = float(np.abs(out16 - ref16).max())
+        rms = float(np.sqrt(np.mean(np.square(out16 - ref16))))
+        scale = max(1.0, float(np.abs(ref16).max()))
+        tol, rms_tol = VIT_BF16_PATH_TOL * scale, VIT_BF16_PATH_RMS_TOL * scale
+        print(f"whole path {name} bf16 card vs CPU, reconstruct {n}: max_abs_err={err:.3e} "
+              f"(tol {tol:.3e}, output range {np.abs(ref16).max():.3f}), rms {rms:.3e} "
+              f"(tol {rms_tol:.3e}); bf16 card vs f32 CPU (not checked): max_abs_err="
+              f"{float(np.abs(out16 - ref).max()):.3e}", flush=True)
+        check(bool(np.isfinite(out16).all()) and err <= tol and rms <= rms_tol,
+              f"whole path {name} bf16: card vs CPU {err} > {tol} or rms {rms} > {rms_tol}")
+
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1065,6 +1441,11 @@ def main(argv=None) -> int:
         transport_launches = phase_mnist32_transport(attention, sinkhorn, args.seed, workdir)
         shutil.rmtree(workdir, ignore_errors=True)
         vae_launches = phase_mnist32_vae(attention, args.seed)
+        bthd_worst, bthd_timings, bhtc_launches = phase_bthd(attention)
+        cifar_launches, cifar_engine = phase_serve_cifar_vit(attention, args.seed)
+        ffhq_launches, ffhq_engine = phase_serve_ffhq_vit(attention, args.seed)
+        phase_vit_whole_path(cifar_engine, ffhq_engine, args.seed)
+        del cifar_engine, ffhq_engine
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1079,7 +1460,8 @@ def main(argv=None) -> int:
                      + vae_launches[0]),
         "launches_by_path": {"serve": launches, "train": train_launches["forward"],
                              "mnist32_transport": transport_launches[0],
-                             "mnist32_vae": vae_launches[0]},
+                             "mnist32_vae": vae_launches[0], "vit_cifar10_serve": 0,
+                             "vit_ffhq128_serve": 0},
         "max_abs_err": max(worst[torch.bfloat16], small_worst[("out", torch.bfloat16)]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1115,6 +1497,27 @@ def main(argv=None) -> int:
         "bound_by": sk_timing["bound_by"],
         "library_ms": None,
     }]
+    for kind, source_line, launches_by_path in (
+            ("bthd", "ot_vae_tpu/ops/attention_pallas.py:676",
+             {"vit_cifar10_serve": cifar_launches, "vit_ffhq128_serve": ffhq_launches}),
+            ("bhtc", "ot_vae_tpu/ops/attention_pallas.py:109",
+             {"vit_cifar10_serve": 0, "vit_ffhq128_serve": 0,
+              "fused_attention_entry": bhtc_launches})):
+        row = bthd_timings[(kind, 4)]  # the FFHQ128 ViT encoder's layer
+        kernels.append({
+            "name": f"attention_{kind}_fwd",
+            "route": "cuda",
+            "source": "ot_vae_tpu_torch/ops/csrc/attention_bthd.cu",
+            "replaces": source_line,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": bthd_worst[kind],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

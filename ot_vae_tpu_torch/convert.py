@@ -2,9 +2,17 @@
 
 The port's module attributes follow the flax module tree, so a flax path
 ``ConvBlock_0/ConvLayer_0/EqualConv_0/Conv_0/kernel`` is the state-dict key
-``ConvBlock_0.ConvLayer_0.EqualConv_0.Conv_0.weight``. Conv kernels go
-HWIO → OIHW; batch-norm ``scale``/``bias``/``mean``/``var`` become
-``weight``/``bias``/``running_mean``/``running_var``.
+``ConvBlock_0.ConvLayer_0.EqualConv_0.Conv_0.weight``. How a leaf maps goes
+by the kind of module that holds it, which flax's names carry (``Conv_<i>``,
+``EqualConv_<i>``, ``BatchNorm_<i>``):
+
+- convolutions: kernels go HWIO → OIHW as ``weight``, ``bias`` stays;
+- batch norms: ``scale``/``bias``/``mean``/``var`` become
+  ``weight``/``bias``/``running_mean``/``running_var``;
+- every other module (the ViT's ``Dense``, ``LayerNorm``, ``Embed`` and
+  attention projections, its raw ``embed_token``, the conditional prior's
+  ``mu`` and ``log_std``) keeps flax's names and layouts: a Dense kernel is
+  [in, out], an attention projection's [dim, H, d] or [H, d, dim].
 :func:`state_dict_to_jax_variables` is the inverse, so tests can hold trained
 parameters and running statistics against the JAX package's key by key.
 
@@ -26,6 +34,21 @@ __all__ = ["jax_variables_to_state_dict", "load_jax_variables",
 _BATCH_NORM = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                "var": "running_var"}
 _CONV = {"kernel": "weight", "bias": "bias"}
+# leaves of the modules that keep flax's names, and the ranks a kernel takes
+_FLAX = {name: name for name in ("kernel", "bias", "scale", "embedding", "embed_token",
+                                 "mu", "log_std")}
+_FLAX_KERNEL_RANKS = (2, 3)
+
+
+def _kind(parents) -> str:
+    """"batch_norm", "conv" or "flax", from the name of the module holding
+    the leaf."""
+    owner = parents[-1] if parents else ""
+    if owner.startswith("BatchNorm"):
+        return "batch_norm"
+    if owner.startswith(("Conv_", "EqualConv_")):
+        return "conv"
+    return "flax"
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
@@ -48,16 +71,20 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})).items():
             *parents, leaf = path
-            names = _BATCH_NORM if parents and parents[-1].startswith("BatchNorm") else _CONV
-            if leaf not in names:
+            kind = _kind(parents)
+            names = {"batch_norm": _BATCH_NORM, "conv": _CONV, "flax": _FLAX}[kind]
+            if leaf not in names or (kind == "flax" and collection != "params"):
                 raise ValueError(f"no mapping for {collection}/{'/'.join(path)}")
-            if leaf == "kernel":
+            if leaf == "kernel" and kind == "conv":
                 if value.ndim != 4:
                     raise ValueError(f"{'/'.join(path)}: expected an HWIO conv kernel, "
                                      f"got shape {value.shape}")
                 value = value.transpose(3, 2, 0, 1)
+            elif leaf == "kernel" and value.ndim not in _FLAX_KERNEL_RANKS:
+                raise ValueError(f"{'/'.join(path)}: expected a Dense or attention kernel, "
+                                 f"got shape {value.shape}")
             key = ".".join([*parents, names[leaf]])
-            state[key] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+            state[key] = torch.from_numpy(np.array(value, np.float32))
     return state
 
 
@@ -72,6 +99,7 @@ _BATCH_NORM_INV = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                    "running_mean": ("batch_stats", "mean"),
                    "running_var": ("batch_stats", "var")}
 _CONV_INV = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+_FLAX_INV = {name: ("params", name) for name in _FLAX}
 
 
 def state_dict_to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -80,13 +108,13 @@ def state_dict_to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, 
     variables: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, tensor in state.items():
         *parents, leaf = key.split(".")
-        names = (_BATCH_NORM_INV if parents and parents[-1].startswith("BatchNorm")
-                 else _CONV_INV)
+        kind = _kind(parents)
+        names = {"batch_norm": _BATCH_NORM_INV, "conv": _CONV_INV, "flax": _FLAX_INV}[kind]
         if leaf not in names:
             raise ValueError(f"no mapping for {key}")
         collection, name = names[leaf]
         value = tensor.detach().float().cpu().numpy()
-        if name == "kernel":
+        if name == "kernel" and kind == "conv":
             value = value.transpose(2, 3, 1, 0)
         node = variables[collection]
         for p in parents:

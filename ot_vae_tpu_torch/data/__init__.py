@@ -1,7 +1,9 @@
 from ot_vae_tpu_torch.data.base import ArrayDataset, BaseDatamodule, dataset_split
-from ot_vae_tpu_torch.data.datasets import FFHQ128, MNIST, MNIST32, ImageFolderData
+from ot_vae_tpu_torch.data.datasets import CIFAR10, FFHQ128, MNIST, MNIST32, ImageFolderData
 from ot_vae_tpu_torch.data.synthetic import synthetic_digits, synthetic_textures
 from ot_vae_tpu_torch.data.transforms import (
+    CIFAR10_MEAN,
+    CIFAR10_STD,
     FFHQ128_MEAN,
     FFHQ128_STD,
     CenterCrop,
@@ -10,15 +12,18 @@ from ot_vae_tpu_torch.data.transforms import (
     Identity,
     Normalize,
     Pad,
+    RandomHorizontalFlip,
     Transform,
     UnNormalize,
+    cifar10_transforms,
     ffhq128_transforms,
     from_spec,
     to_spec,
 )
 
 __all__ = ["Transform", "Identity", "Compose", "Normalize", "UnNormalize", "Pad",
-           "CenterCrop", "GaussianBlur", "FFHQ128_MEAN", "FFHQ128_STD",
-           "ffhq128_transforms", "to_spec", "from_spec", "ArrayDataset", "BaseDatamodule",
+           "CenterCrop", "GaussianBlur", "RandomHorizontalFlip", "FFHQ128_MEAN",
+           "FFHQ128_STD", "CIFAR10_MEAN", "CIFAR10_STD", "ffhq128_transforms",
+           "cifar10_transforms", "to_spec", "from_spec", "ArrayDataset", "BaseDatamodule",
            "dataset_split", "synthetic_digits", "synthetic_textures", "ImageFolderData",
-           "FFHQ128", "MNIST", "MNIST32"]
+           "FFHQ128", "MNIST", "MNIST32", "CIFAR10"]

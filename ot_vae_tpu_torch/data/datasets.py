@@ -1,9 +1,11 @@
-"""Named datamodules (counterpart: ``MNIST``, ``MNIST32``,
+"""Named datamodules (counterpart: ``MNIST``, ``MNIST32``, ``CIFAR10``,
 ``ImageFolderData`` and ``FFHQ128`` in ``ot_vae_tpu/data/datasets.py``).
 
 MNIST is read from its idx files in the local cache (``$OT_VAE_DATA_CACHE``
 or ``~/.cache``, under ``MNIST/raw``) when they are there, else the seeded
-:func:`synthetic_digits` stand in; nothing is downloaded. Image folders are
+:func:`synthetic_digits` stand in; CIFAR10 likewise from the python batches
+under ``cifar-10-batches-py``, else the seeded :func:`synthetic_textures`;
+nothing is downloaded. Image folders are
 read with PIL, which is imported only when a folder holds images; with
 ``synthetic_train``/``synthetic_test`` set, a missing folder falls back to
 the seeded :func:`synthetic_textures` at the module's resolution, as in the
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import os
+import pickle
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -22,6 +25,8 @@ import numpy as np
 from ot_vae_tpu_torch.data.base import ArrayDataset, BaseDatamodule, dataset_split
 from ot_vae_tpu_torch.data.synthetic import synthetic_digits, synthetic_textures
 from ot_vae_tpu_torch.data.transforms import (
+    CIFAR10_MEAN,
+    CIFAR10_STD,
     FFHQ128_MEAN,
     FFHQ128_STD,
     CenterCrop,
@@ -29,10 +34,11 @@ from ot_vae_tpu_torch.data.transforms import (
     Identity,
     Normalize,
     Pad,
+    RandomHorizontalFlip,
     UnNormalize,
 )
 
-__all__ = ["MNIST", "MNIST32", "ImageFolderData", "FFHQ128"]
+__all__ = ["MNIST", "MNIST32", "CIFAR10", "ImageFolderData", "FFHQ128"]
 
 
 def _cache_dir() -> Path:
@@ -63,6 +69,35 @@ def _load_mnist_raw(train: bool) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         if imgs is not None and labs is not None:
             return imgs.astype(np.float32)[..., None] / 255.0, labs.astype(np.int32)
     return None
+
+
+class _ArrayUnpickler(pickle.Unpickler):
+    """Reads CIFAR10's python batches: dicts of bytes, lists and numpy
+    arrays, and no other global."""
+
+    _ALLOWED = {("numpy.core.multiarray", "_reconstruct"),
+                ("numpy._core.multiarray", "_reconstruct"),
+                ("numpy", "ndarray"), ("numpy", "dtype")}
+
+    def find_class(self, module, name):
+        if (module, name) not in self._ALLOWED:
+            raise pickle.UnpicklingError(f"{module}.{name} is not allowed in a CIFAR10 batch")
+        return super().find_class(module, name)
+
+
+def _load_cifar10_raw(train: bool) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    base = _cache_dir() / "cifar-10-batches-py"
+    names = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+    imgs, labs = [], []
+    for name in names:
+        path = base / name
+        if not path.exists():
+            return None
+        with open(path, "rb") as f:
+            d = _ArrayUnpickler(f, encoding="bytes").load()
+        imgs.append(np.asarray(d[b"data"]).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+        labs.extend(d[b"labels"])
+    return np.concatenate(imgs).astype(np.float32) / 255.0, np.asarray(labs, np.int32)
 
 
 @dataclasses.dataclass
@@ -109,6 +144,44 @@ class MNIST32(MNIST):
     """MNIST padded to 32×32, a power of two for the CNN schedule."""
 
     pad: int = 2
+
+
+@dataclasses.dataclass
+class CIFAR10(BaseDatamodule):
+    """32×32 RGB in 10 classes, normalised with CIFAR10's mean and std. The
+    validation split is the ``test_val_split`` share of the test set, the
+    test split the rest; predict reads the whole test set raw. The training
+    split's random flip (``random_flip``) arrives with the ViT training
+    slice."""
+
+    MEAN: Tuple[float, ...] = CIFAR10_MEAN
+    STD: Tuple[float, ...] = CIFAR10_STD
+    synthetic_train: int = 6000
+    synthetic_test: int = 1000
+    test_val_split: float = 0.9
+    random_flip: bool = True
+
+    def __post_init__(self):
+        self.img_size = (32, 32)
+        norm = Normalize(self.MEAN, self.STD)
+        self.inference_preprocess = norm
+        self.inference_postprocess = UnNormalize(self.MEAN, self.STD)
+        flip = [RandomHorizontalFlip()] if self.random_flip else []
+        self._train_transform = Compose([*flip, norm])
+        self._eval_transform = norm
+
+    def setup(self) -> None:
+        if self.train_dataset is not None:
+            return
+        train, test = _load_cifar10_raw(True), _load_cifar10_raw(False)
+        if train is None or test is None:
+            train = synthetic_textures(self.synthetic_train, seed=1)
+            test = synthetic_textures(self.synthetic_test, seed=2)
+        self.train_dataset = ArrayDataset(*train, self._train_transform)
+        (vi, vl), (ti, tl) = dataset_split(*test, self.test_val_split, self.seed)
+        self.val_dataset = ArrayDataset(vi, vl, self._eval_transform)
+        self.test_dataset = ArrayDataset(ti, tl, self._eval_transform)
+        self.predict_dataset = ArrayDataset(*test, Identity())
 
 
 @dataclasses.dataclass

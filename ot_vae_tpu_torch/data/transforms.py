@@ -1,7 +1,7 @@
 """Transforms on NHWC tensors or numpy arrays
 (counterpart: ``ot_vae_tpu/data/transforms.py``), their JSON specs for the
-checkpoint sidecar, and the FFHQ128 normalisation constants
-(``ot_vae_tpu/data/datasets.py``, class ``FFHQ128``).
+checkpoint sidecar, and the FFHQ128 and CIFAR10 normalisation constants
+(``ot_vae_tpu/data/datasets.py``, classes ``FFHQ128`` and ``CIFAR10``).
 
 A transform is called as ``t(x, generator=None)``: the JAX package's take
 ``(x, key)``; the port's take a ``torch.Generator`` where they draw."""
@@ -15,10 +15,14 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["Transform", "Identity", "Compose", "Normalize", "UnNormalize", "Pad",
-           "CenterCrop", "GaussianBlur", "FFHQ128_MEAN", "FFHQ128_STD", "ffhq128_transforms", "to_spec", "from_spec"]
+           "CenterCrop", "GaussianBlur", "RandomHorizontalFlip", "FFHQ128_MEAN", "FFHQ128_STD",
+           "CIFAR10_MEAN", "CIFAR10_STD", "ffhq128_transforms", "cifar10_transforms",
+           "to_spec", "from_spec"]
 
 FFHQ128_MEAN: Tuple[float, ...] = (0.5207, 0.4254, 0.3805)
 FFHQ128_STD: Tuple[float, ...] = (0.1164, 0.1110, 0.1162)
+CIFAR10_MEAN: Tuple[float, ...] = (0.4914, 0.4822, 0.4465)
+CIFAR10_STD: Tuple[float, ...] = (0.247, 0.243, 0.261)
 
 
 def _constants(x, *values):
@@ -139,6 +143,23 @@ class GaussianBlur(Transform):
 def ffhq128_transforms() -> Tuple[Normalize, UnNormalize]:
     """The FFHQ128 (pre, post) inference transforms."""
     return Normalize(FFHQ128_MEAN, FFHQ128_STD), UnNormalize(FFHQ128_MEAN, FFHQ128_STD)
+
+
+def cifar10_transforms() -> Tuple[Normalize, UnNormalize]:
+    """The CIFAR10 (pre, post) inference transforms."""
+    return Normalize(CIFAR10_MEAN, CIFAR10_STD), UnNormalize(CIFAR10_MEAN, CIFAR10_STD)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomHorizontalFlip(Transform):
+    """Flip W with probability p: CIFAR10's training augmentation, which
+    arrives with the ViT training slice."""
+
+    p: float = 0.5
+
+    def __call__(self, x, generator=None):
+        raise NotImplementedError(
+            "RandomHorizontalFlip arrives with the ViT training slice (6b)")
 
 
 _REGISTRY = {cls.__name__: cls for cls in (Identity, Normalize, UnNormalize, Pad,

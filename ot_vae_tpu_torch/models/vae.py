@@ -10,9 +10,15 @@ batch statistics.
 Where no generator and no ε are given, ``forward`` and ``encode`` draw ε
 from a fresh generator seeded 0 on every call, as the JAX package uses
 ``PRNGKey(0)`` there: two calls on one input agree.
+
+Conditioning (``labels``) reaches only the nets whose ``forward`` (or the
+autoencoder's ``encode``/``decode``) accepts it, as ``_call_net`` does in the
+JAX package, and always the prior; a conditional ``VAE`` hands each batch's
+labels on as ``kwargs``.
 """
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Dict, Optional, Tuple, Union
 
@@ -23,6 +29,20 @@ from ot_vae_tpu_torch.models.base import VisionModel, seeded_generator
 from ot_vae_tpu_torch.utils import mean_replicated_batch, replicate_batch
 
 __all__ = ["VAENet", "VAE"]
+
+
+def _takes_labels(fn) -> bool:
+    """Whether ``fn`` (a module's ``forward`` or a method) accepts ``labels``."""
+    target = fn.forward if isinstance(fn, nn.Module) else fn
+    return "labels" in inspect.signature(target).parameters
+
+
+def _call_net(fn, takes_labels: bool, x: torch.Tensor,
+              labels: Optional[torch.Tensor]) -> torch.Tensor:
+    """``fn(x)``, with ``labels`` when given and ``fn`` takes them."""
+    if labels is not None and takes_labels:
+        return fn(x, labels=labels)
+    return fn(x)
 
 
 class VAENet(nn.Module):
@@ -43,6 +63,17 @@ class VAENet(nn.Module):
         self.encoder = encoder
         self.decoder = decoder
         self.prior = prior
+        # which nets take labels is fixed here, not looked up on every call
+        self._encode_labels = _takes_labels(self._encode_net)
+        self._decode_labels = _takes_labels(self._decode_net)
+
+    @property
+    def _encode_net(self):
+        return self.autoencoder.encode if self.autoencoder is not None else self.encoder
+
+    @property
+    def _decode_net(self):
+        return self.autoencoder.decode if self.autoencoder is not None else self.decoder
 
     @property
     def latent_size(self) -> Tuple[int, ...]:
@@ -53,19 +84,21 @@ class VAENet(nn.Module):
 
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None, expand: int = 1,
-               step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False):
+               step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False,
+               labels: Optional[torch.Tensor] = None):
         """z, or (z, per-sample prior loss, artifacts) with ``return_artifacts``.
-        The batch is replicated ``expand``× before the draw."""
-        return self.reparametrize(self.features(x), generator, noise, expand, step,
-                                  return_artifacts)
+        The batch (and ``labels``) is replicated ``expand``× before the draw."""
+        return self.reparametrize(self.features(x, labels), generator, noise, expand, step,
+                                  return_artifacts, labels)
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The encoder's output, before the prior."""
-        return self.autoencoder.encode(x) if self.autoencoder is not None else self.encoder(x)
+        return _call_net(self._encode_net, self._encode_labels, x, labels)
 
     def reparametrize(self, enc: torch.Tensor, generator: Optional[torch.Generator] = None,
                       noise: Optional[torch.Tensor] = None, expand: int = 1,
-                      step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False):
+                      step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False,
+                      labels: Optional[torch.Tensor] = None):
         """The prior's draw of z from the encoder's output; see ``encode``."""
         enc = replicate_batch(enc, expand)
         if self.prior is None:
@@ -73,29 +106,32 @@ class VAENet(nn.Module):
         else:
             if generator is None and noise is None:
                 generator = seeded_generator(0, enc.device)  # JAX: PRNGKey(0)
-            z, loss, artifacts = self.prior(enc, step, generator=generator, noise=noise)
+            z, loss, artifacts = self.prior(enc, step, generator=generator, noise=noise,
+                                            labels=replicate_batch(labels, expand))
         return (z, loss, artifacts) if return_artifacts else z
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        if self.autoencoder is not None:
-            return self.autoencoder.decode(z)
-        return self.decoder(z)
+    def decode(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None,
+               expand: int = 1) -> torch.Tensor:
+        return _call_net(self._decode_net, self._decode_labels, z,
+                         replicate_batch(labels, expand))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, expand: int = 1) -> torch.Tensor:
-        return self.decode(self.encode(x, generator, noise, expand))
+                noise: Optional[torch.Tensor] = None, expand: int = 1,
+                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        z = self.encode(x, generator, noise, expand, labels=labels)
+        return self.decode(z, labels, expand)
 
-    def sample_latents(self, batch_size: int,
-                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def sample_latents(self, batch_size: int, generator: Optional[torch.Generator] = None,
+                       labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         shape = (batch_size, *self.latent_size)
         device = next(self.parameters()).device
         if self.prior is None:
             return torch.randn(shape, generator=generator, device=device)
-        return self.prior.sample(shape, generator=generator, device=device)
+        return self.prior.sample(shape, generator=generator, device=device, labels=labels)
 
-    def sample(self, batch_size: int,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.decode(self.sample_latents(batch_size, generator))
+    def sample(self, batch_size: int, generator: Optional[torch.Generator] = None,
+               labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decode(self.sample_latents(batch_size, generator, labels), labels)
 
 
 class VAE(VisionModel):
@@ -105,6 +141,7 @@ class VAE(VisionModel):
 
     :param expansion: samples of z per image in the loss; the reconstruction
         term takes the mean of the replicas' reconstructions
+    :param conditional: hand each batch's labels to the nets and the prior
     """
 
     def __init__(self, encoder: Optional[nn.Module] = None,
@@ -114,10 +151,11 @@ class VAE(VisionModel):
                  learning_rate: float = 1e-3,
                  ema_decay: Optional[float] = None, checkpoints=None,
                  gradient_clip_val: Optional[float] = None,
-                 autoencoder: Optional[nn.Module] = None):
+                 autoencoder: Optional[nn.Module] = None, conditional: bool = False):
         super().__init__(VAENet(encoder, decoder, prior, autoencoder), metrics, monitor,
                          mode, learning_rate, ema_decay, gradient_clip_val, checkpoints)
         self.expansion = expansion
+        self.conditional = conditional
 
     @property
     def latent_size(self) -> Tuple[int, ...]:
@@ -126,10 +164,11 @@ class VAE(VisionModel):
     # ------------------------------------------------------------ training
 
     def batch_preprocess(self, batch, train: bool = True) -> Dict[str, torch.Tensor]:
-        """(samples, labels) → {'samples', 'target', 'kwargs'}; the kwargs
-        (labels for a conditional model) arrive with the conditional slice."""
-        samples = batch[0]
-        return {"samples": samples, "target": samples, "kwargs": {}}
+        """(samples, labels) → {'samples', 'target', 'kwargs'}; ``kwargs``
+        holds the labels of a conditional model."""
+        samples, labels = batch[0], batch[1]
+        kwargs = {"labels": labels} if self.conditional else {}
+        return {"samples": samples, "target": samples, "kwargs": kwargs}
 
     def recon_loss(self, reconstructions: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         acc = torch.promote_types(reconstructions.dtype, torch.float32)
@@ -151,9 +190,10 @@ class VAE(VisionModel):
         samples, target = pbatch["samples"], pbatch["target"]
         batch_size = samples.shape[0]
         self.net.train()
+        kwargs = pbatch.get("kwargs", {})
         z, ploss, partifacts = self.net.encode(samples, generator, noise, self.expansion,
-                                               step, return_artifacts=True)
-        recon = self.net.decode(z)
+                                               step, return_artifacts=True, **kwargs)
+        recon = self.net.decode(z, expand=self.expansion, **kwargs)
         recon_mean = mean_replicated_batch(recon, self.expansion)
         p_loss = self.prior_loss(ploss, partifacts) / math.prod(samples.shape[1:])
         r_loss = self.recon_loss(recon_mean, target)
@@ -173,9 +213,10 @@ class VAE(VisionModel):
         latents (the JAX ``encode_fn``) with ε from ``latent_generator``,
         both drawn from one pass of the encoder."""
         self.net.eval()
-        enc = self.net.features(pbatch["samples"])
-        preds = self.net.decode(self.net.reparametrize(enc, generator))
-        return preds, self.net.reparametrize(enc, latent_generator)
+        kwargs = pbatch.get("kwargs", {})
+        enc = self.net.features(pbatch["samples"], **kwargs)
+        preds = self.net.decode(self.net.reparametrize(enc, generator, **kwargs), **kwargs)
+        return preds, self.net.reparametrize(enc, latent_generator, **kwargs)
 
     @torch.no_grad()
     def eval_encode(self, samples: torch.Tensor,
@@ -194,18 +235,19 @@ class VAE(VisionModel):
     # ------------------------------------------------------------ user API
 
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.net.encode(self.maybe_preprocess(x), generator, noise)
+               noise: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:
+        return self.net.encode(self.maybe_preprocess(x), generator, noise, **kwargs)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.maybe_postprocess(self.net.decode(z))
+    def decode(self, z: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.maybe_postprocess(self.net.decode(z, **kwargs))
 
-    def sample(self, batch_size: int,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def sample(self, batch_size: int, generator: Optional[torch.Generator] = None,
+               **kwargs) -> torch.Tensor:
         if generator is None:
             generator = self.default_generator()
-        return self.maybe_postprocess(self.net.sample(batch_size, generator))
+        return self.maybe_postprocess(self.net.sample(batch_size, generator, **kwargs))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.maybe_postprocess(self.net(self.maybe_preprocess(x), generator, noise))
+                noise: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:
+        return self.maybe_postprocess(self.net(self.maybe_preprocess(x), generator, noise,
+                                               **kwargs))

@@ -1,8 +1,11 @@
 """Network building blocks (counterpart: ``ot_vae_tpu/networks/nets_utils.py``).
 
-Tensors inside the networks are NCHW in ``channels_last`` memory; parameter
+Tensors inside the CNN are NCHW in ``channels_last`` memory; parameter
 names follow the JAX package's module tree, so ``convert.py`` maps one onto
-the other by path.
+the other by path. The flax layers the ViT is built from (``Dense``,
+``LayerNorm``, ``Embed``, ``MultiHeadDotProductAttention``) keep flax's
+parameter names and shapes as well (a Dense kernel is [in, out]), and
+:func:`mha_attention_fn` routes their attention as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -13,7 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ot_vae_tpu_torch.ops.attention import fused_attention_packed
+from ot_vae_tpu_torch.ops.attention import (
+    fused_attention_bthd,
+    fused_attention_bthd_dropout,
+    fused_attention_packed,
+)
 
 __all__ = [
     "div_sqrt",
@@ -22,6 +29,12 @@ __all__ = [
     "Normalization",
     "EqualConv",
     "spatial_attention",
+    "Dense",
+    "LayerNorm",
+    "Embed",
+    "MultiHeadDotProductAttention",
+    "mha_attention_fn",
+    "dot_product_attention",
 ]
 
 
@@ -183,3 +196,194 @@ def spatial_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """
     ch = qkv.shape[-1] // (3 * n_heads)
     return fused_attention_packed(qkv, n_heads, 1.0 / math.sqrt(ch))
+
+
+# ---------------------------------------------------------------- flax layers
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: y = x·kernel + bias with kernel [in, out], inputs,
+    kernel and bias cast to ``dtype`` first (f32 parameters, bf16 compute
+    when ``dtype`` is bf16)."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.randn(in_features, features) / math.sqrt(in_features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.kernel.t().to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+_LN_EPS = 1e-6  # flax nn.LayerNorm's default
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis, ε = 1e-6: statistics in f32
+    (f64 for f64 input) with flax's fast variance E[x²] − E[x]² clipped at
+    0, normalised and scaled in f32, cast to ``dtype``. The fast variance
+    loses about mean²/var f32 ulps of the variance against the two-pass
+    E[(x − E[x])²] of ``F.layer_norm``: on the CPU the outputs differ by
+    2e-6 of their range for unit-variance rows and by 1.3e-5 for rows whose
+    mean is 8 standard deviations off zero (tests/test_torch_vit.py)."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        y = (x - mean) * (torch.rsqrt(var + _LN_EPS) * self.scale)
+        return (y + self.bias).to(self.dtype)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: rows of ``embedding`` [num, features], cast to
+    ``dtype``."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.randn(num_embeddings, features)
+                                      / math.sqrt(features))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.embedding.to(self.dtype)[idx.long()]
+
+
+class _HeadProjection(nn.Module):
+    """flax ``DenseGeneral`` of the attention: ``features_in`` [dim] →
+    [H, d] (kernel [dim, H, d], bias [H, d]) or, with ``merge``, [H, d] →
+    [dim] (kernel [H, d, dim], bias [dim])."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, merge: bool, dtype):
+        super().__init__()
+        self.merge, self.dtype = merge, dtype
+        shape = (heads, head_dim, dim) if merge else (dim, heads, head_dim)
+        fan_in = heads * head_dim if merge else dim
+        self.kernel = nn.Parameter(torch.randn(*shape) / math.sqrt(fan_in))
+        self.bias = nn.Parameter(torch.zeros(dim if merge else (heads, head_dim)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel.to(self.dtype)
+        if self.merge:  # [B, T, H, d] → [B, T, dim]
+            return F.linear(x.flatten(-2).to(self.dtype), k.flatten(0, 1).t(),
+                            self.bias.to(self.dtype))
+        y = F.linear(x.to(self.dtype), k.flatten(1).t(), self.bias.flatten().to(self.dtype))
+        return y.unflatten(-1, k.shape[1:])
+
+
+def dot_product_attention(query, key, value, bias=None, mask=None,
+                          broadcast_dropout: bool = True,
+                          dropout_rng: Optional[torch.Generator] = None,
+                          dropout_rate: float = 0.0, deterministic: bool = False,
+                          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """flax ``dot_product_attention`` in plain torch, the path of calls no
+    kernel takes (a bias, an arbitrary mask, per-element dropout): the query
+    scaled by 1/sqrt(d), logits with ``bias`` added and masked-out entries
+    set to the dtype's lowest value, softmax in the compute dtype, dropout
+    of the weights, weights·V.
+
+    :param query: [B, Tq, H, d]; key, value: [B, Tk, H, d]
+    :param mask: boolean, broadcastable to [B, H, Tq, Tk]; True keeps
+    :return: [B, Tq, H, d]
+    """
+    dtype = dtype or query.dtype
+    d = query.shape[-1]
+    query = query.to(dtype) / math.sqrt(d)
+    weights = torch.einsum("bqhd,bkhd->bhqk", query, key.to(dtype))
+    if bias is not None:
+        weights = weights + bias.to(dtype)
+    if mask is not None:
+        weights = weights.masked_fill(~mask.bool(), torch.finfo(dtype).min)
+    weights = torch.softmax(weights, dim=-1).to(dtype)
+    if not deterministic and dropout_rate > 0.0:
+        keep_prob = 1.0 - dropout_rate
+        shape = (1, 1, *weights.shape[-2:]) if broadcast_dropout else weights.shape
+        keep = torch.rand(shape, generator=dropout_rng, device=weights.device) < keep_prob
+        weights = weights * (keep.to(dtype) / keep_prob)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, value.to(dtype))
+
+
+def mha_attention_fn(query, key, value, bias=None, mask=None,
+                     broadcast_dropout: bool = True,
+                     dropout_rng: Optional[torch.Generator] = None,
+                     dropout_rate: float = 0.0, deterministic: bool = False,
+                     dtype: Optional[torch.dtype] = None,
+                     causal_hint: bool = False) -> torch.Tensor:
+    """Attention of ``MultiHeadDotProductAttention`` (counterpart of
+    ``mha_attention_fn``, ``ot_vae_tpu/networks/nets_utils.py:611``).
+
+    Routed to the BTHD kernel (row 7, :func:`fused_attention_bthd`) when
+    the call has no bias, its mask is absent or the layer's causal hint with
+    Tq = Tk, key and value share a shape, and dropout is off or broadcast
+    with a generator (:func:`fused_attention_bthd_dropout`, the [Tq, Tk]
+    keep mask drawn here as the plain path draws it). The kernel takes every
+    T and head dim: the JAX package's T ≥ 512 threshold and 128-lane windows
+    were the TPU's, so its packed and BHTC fallbacks are never reached.
+    Everything else takes :func:`dot_product_attention`.
+
+    :param query: [B, Tq, H, d]; key, value: [B, Tk, H, d]
+    :return: [B, Tq, H, d]
+    """
+    b, t, h, d = query.shape
+    tk = key.shape[1]
+    dropout_active = (not deterministic) and dropout_rate > 0.0
+    causal = bool(causal_hint) and mask is not None and tk == t
+    if (bias is None and (mask is None or causal)
+            and key.shape == value.shape and key.shape[0] == b
+            and tuple(key.shape[2:]) == (h, d)
+            and (not dropout_active or (broadcast_dropout and dropout_rng is not None))):
+        dtype = dtype or query.dtype
+        qf, kf, vf = (x.to(dtype).reshape(x.shape[0], x.shape[1], h * d)
+                      for x in (query, key, value))
+        scale = 1.0 / math.sqrt(d)
+        if dropout_active:
+            keep_prob = 1.0 - dropout_rate
+            keep = torch.rand((t, tk), generator=dropout_rng, device=query.device) < keep_prob
+            mult = keep.to(dtype) / keep_prob
+            out = fused_attention_bthd_dropout(qf, kf, vf, mult, h, scale, causal=causal)
+        else:
+            out = fused_attention_bthd(qf, kf, vf, h, scale, causal=causal)
+        return out.reshape(b, t, h, d)
+    return dot_product_attention(query, key, value, bias=bias, mask=mask,
+                                 broadcast_dropout=broadcast_dropout,
+                                 dropout_rng=dropout_rng, dropout_rate=dropout_rate,
+                                 deterministic=deterministic, dtype=dtype)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` with ``attention_fn`` =
+    :func:`mha_attention_fn`: projections ``query``, ``key``, ``value``
+    (kernels [dim, H, d], biases [H, d]) and ``out`` (kernel [H, d, dim],
+    bias [dim]), d = dim / H. Attention dropout is off in eval mode; in
+    train mode it draws from ``dropout_rng``."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0, causal_hint: bool = False):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
+        head_dim = dim // num_heads
+        self.dropout_rate, self.causal_hint, self.dtype = dropout_rate, causal_hint, dtype
+        self.query = _HeadProjection(dim, num_heads, head_dim, False, dtype)
+        self.key = _HeadProjection(dim, num_heads, head_dim, False, dtype)
+        self.value = _HeadProjection(dim, num_heads, head_dim, False, dtype)
+        self.out = _HeadProjection(dim, num_heads, head_dim, True, dtype)
+
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: Optional[torch.Tensor] = None,
+                mask=None, dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        inputs_kv = inputs_q if inputs_kv is None else inputs_kv
+        x = mha_attention_fn(self.query(inputs_q), self.key(inputs_kv),
+                             self.value(inputs_kv), mask=mask, dropout_rng=dropout_rng,
+                             dropout_rate=self.dropout_rate,
+                             deterministic=not self.training, dtype=self.dtype,
+                             causal_hint=self.causal_hint)
+        return self.out(x)

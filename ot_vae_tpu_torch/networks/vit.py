@@ -1,0 +1,258 @@
+"""Generalized encoder/decoder ViT (counterpart: ``ot_vae_tpu/networks/vit.py``).
+
+Token streams (input, embed, class) in the fixed order input|embed|class,
+with the JAX package's static index bookkeeping (``_plan``), patchify and
+unpatchify as reshapes, learned positional embeddings, post-LN transformer
+blocks with an optional cross-attention stage (``preprocess_depth``).
+Images are NHWC; ``out_size`` is (H, W, C) with ``embed_to_patch``, else
+(tokens, dim). Module and parameter names follow the flax tree
+(``TransformerLayer_0/MultiHeadDotProductAttention_0/query/kernel``, ...),
+so ``convert.py`` carries variables across by path. Every attention call
+goes through :func:`~ot_vae_tpu_torch.networks.nets_utils.mha_attention_fn`:
+the BTHD kernel (row 7) on a CUDA tensor.
+
+Not ported yet: ``time_dependant`` and the ``decode=True`` KV-cache path
+and ``AutoRegressive`` (slice 7: AutoDiffusion and DAD), and train-mode
+dropout (the ViT training slice, 6b).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ot_vae_tpu_torch.networks.nets_utils import (
+    Dense,
+    Embed,
+    LayerNorm,
+    MultiHeadDotProductAttention,
+)
+
+__all__ = ["PositionalEmbedding", "TransformerLayer", "ViT", "AutoRegressive"]
+
+_TRAINING = "ViT training (dropout in train mode) arrives with the ViT training slice (6b)"
+_SLICE_7 = "arrives with slice 7 (AutoDiffusion and DAD)"
+
+
+def pair(t):
+    return tuple(t) if isinstance(t, (tuple, list)) else (t, t)
+
+
+def _check_dropout(module: nn.Module, rate: float):
+    if module.training and rate > 0.0:
+        raise NotImplementedError(_TRAINING)
+
+
+class PositionalEmbedding(nn.Module):
+    """Learned positional embedding, then LayerNorm (dropout in train mode
+    is the training slice's)."""
+
+    def __init__(self, max_length: int, d_model: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model, self.dropout = d_model, dropout
+        self.Embed_0 = Embed(max_length, d_model, dtype)
+        self.LayerNorm_0 = LayerNorm(d_model, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.d_model:
+            raise ValueError("feature dim of `x` must equal d_model")
+        _check_dropout(self, self.dropout)
+        pos = self.Embed_0(torch.arange(x.shape[-2], device=x.device))
+        return self.LayerNorm_0(x + pos)
+
+
+class TransformerLayer(nn.Module):
+    """Post-LN block: self-attention (+ optional cross-attention on
+    ``memory``, Tq ≠ Tk) + ReLU MLP, each added to its input and normalised
+    (torch ``nn.TransformerEncoderLayer``/``DecoderLayer`` semantics)."""
+
+    def __init__(self, dim: int, heads: int, mlp_dim: int, dropout: float = 0.0,
+                 cross: bool = False, causal: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout, self.cross = dropout, cross
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            dim, heads, dtype, dropout, causal_hint=causal)
+        self.LayerNorm_0 = LayerNorm(dim, dtype)
+        if cross:
+            self.MultiHeadDotProductAttention_1 = MultiHeadDotProductAttention(
+                dim, heads, dtype, dropout)
+            self.LayerNorm_1 = LayerNorm(dim, dtype)
+        self.Dense_0 = Dense(dim, mlp_dim, dtype)
+        self.Dense_1 = Dense(mlp_dim, dim, dtype)
+        setattr(self, f"LayerNorm_{2 if cross else 1}", LayerNorm(dim, dtype))
+
+    def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        _check_dropout(self, self.dropout)
+        x = self.LayerNorm_0(x + self.MultiHeadDotProductAttention_0(x, mask=mask))
+        if self.cross:
+            if memory is None:
+                raise ValueError("cross-attention layer requires `memory`")
+            x = self.LayerNorm_1(x + self.MultiHeadDotProductAttention_1(x, memory))
+        h = self.Dense_1(F.relu(self.Dense_0(x)))
+        final = self.LayerNorm_2 if self.cross else self.LayerNorm_1
+        return final(x + h)
+
+
+class ViT(nn.Module):
+    """Generalized ViT with input, embed and class token streams.
+
+    Arguments as the JAX ``ViT``; ``head_dim`` wins over ``heads`` when set.
+    Forward: ``vit(x, labels=None)`` on NHWC images (``patch_to_embed``) or
+    [B, tokens, dim] embeddings.
+    """
+
+    def __init__(self, image_size: Union[int, Tuple[int, int]], dim: int,
+                 patch_size: Optional[Union[int, Tuple[int, int]]] = None, depth: int = 6,
+                 preprocess_depth: Optional[int] = None, heads: int = 8,
+                 head_dim: Optional[int] = None, mlp_dim: Optional[int] = None,
+                 channels: int = 3, dropout: float = 0.1, emb_dropout: float = 0.0,
+                 n_embed_tokens: Optional[int] = 1, n_input_tokens: Optional[int] = None,
+                 output_tokens: Union[str, Sequence[str]] = "embed",
+                 patch_to_embed: bool = True, embed_to_patch: bool = False,
+                 num_classes: Optional[int] = None, time_dependant: bool = False,
+                 causal_mask: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if time_dependant:
+            raise NotImplementedError(f"time_dependant ViT {_SLICE_7}")
+        if causal_mask:
+            raise NotImplementedError(f"the causal ViT {_SLICE_7}")
+        self.image_size, self.dim, self.patch_size = image_size, dim, patch_size
+        self.depth, self.preprocess_depth, self.heads = depth, preprocess_depth, heads
+        self.head_dim, self.channels = head_dim, channels
+        self.n_embed_tokens, self.n_input_tokens = n_embed_tokens, n_input_tokens
+        self.output_tokens, self.num_classes = output_tokens, num_classes
+        self.patch_to_embed, self.embed_to_patch = patch_to_embed, embed_to_patch
+        self.dtype = dtype
+        self._plan = p = self._make_plan()
+        mlp_dim = mlp_dim or dim * 4
+
+        if patch_to_embed:
+            self.patch_proj = Dense(p["patch_dim"], dim, dtype)
+        if p["n_tokens"]["embed"] > 0:
+            self.embed_token = nn.Parameter(torch.randn(1, p["n_tokens"]["embed"], dim))
+        if num_classes is not None:
+            self.class_token = Embed(num_classes, dim, dtype)
+        self.PositionalEmbedding_0 = PositionalEmbedding(p["total"], dim, emb_dropout, dtype)
+        layers = []
+        if preprocess_depth is not None:
+            layers += [TransformerLayer(dim, self.n_heads, mlp_dim, dropout, dtype=dtype)
+                       for _ in range(preprocess_depth)]
+        layers += [TransformerLayer(dim, self.n_heads, mlp_dim, dropout,
+                                    cross=preprocess_depth is not None, dtype=dtype)
+                   for _ in range(depth)]
+        for i, layer in enumerate(layers):
+            self.add_module(f"TransformerLayer_{i}", layer)
+        self._layers = tuple(layers)  # a tuple registers nothing: the names stay flax's
+        if embed_to_patch:
+            self.unpatch_proj = Dense(dim, p["patch_dim"], dtype)
+        self.register_buffer("_out_idx", torch.tensor(p["out_idx"]), persistent=False)
+        self.register_buffer("_cross_idx", torch.tensor(p["cross_idx"], dtype=torch.long),
+                             persistent=False)
+
+    # -------------------------------------------------- static token plan
+
+    @property
+    def n_heads(self) -> int:
+        if self.head_dim is None:
+            return self.heads
+        if self.dim % self.head_dim:
+            raise ValueError(f"dim {self.dim} not divisible by head_dim {self.head_dim}")
+        return self.dim // self.head_dim
+
+    def _make_plan(self):
+        image_h, image_w = pair(self.image_size)
+        patch = self.patch_size
+        if patch is None:
+            patch = (min(image_h // 4, 16), min(image_w // 4, 16))
+        patch_h, patch_w = pair(patch)
+        if image_h % patch_h or image_w % patch_w:
+            raise ValueError("Image dimensions must be divisible by the patch size.")
+        n_patch_h, n_patch_w = image_h // patch_h, image_w // patch_w
+        num_patches = n_patch_h * n_patch_w
+        n_tokens = {
+            "input": num_patches if self.n_input_tokens is None else self.n_input_tokens,
+            "embed": num_patches if self.n_embed_tokens is None else self.n_embed_tokens,
+            "class": int(self.num_classes is not None),
+            "time": 0,
+        }
+        token_indices, cur = {}, 0
+        for k, n in n_tokens.items():
+            token_indices[k] = list(range(cur, cur + n))
+            cur += n
+        out_types = ([self.output_tokens] if isinstance(self.output_tokens, str)
+                     else list(self.output_tokens))
+        if not all(t in token_indices for t in out_types):
+            raise ValueError(f"`output_tokens` must be within {list(token_indices)}")
+        out_idx, cross_idx = [], []
+        for k, idx in token_indices.items():
+            (out_idx if k in out_types else cross_idx).extend(idx)
+        return dict(image=(image_h, image_w), patch=(patch_h, patch_w),
+                    n_patch=(n_patch_h, n_patch_w), num_patches=num_patches,
+                    patch_dim=self.channels * patch_h * patch_w, n_tokens=n_tokens,
+                    total=cur, out_idx=out_idx, cross_idx=cross_idx)
+
+    @property
+    def total_num_tokens(self) -> int:
+        return self._plan["total"]
+
+    @property
+    def out_size(self) -> Tuple[int, ...]:
+        p = self._plan
+        if self.embed_to_patch:
+            return (*p["image"], self.channels)
+        return (len(p["out_idx"]), self.dim)
+
+    # -------------------------------------------------- forward
+
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                decode: bool = False) -> torch.Tensor:
+        if decode:
+            raise NotImplementedError(f"the KV-cached decode path {_SLICE_7}")
+        p = self._plan
+        (ph, pw), (nh, nw) = p["patch"], p["n_patch"]
+        b = x.shape[0]
+        if self.patch_to_embed:  # b (h p1) (w p2) c -> b (h w) (p1 p2 c)
+            x = x.reshape(b, nh, ph, nw, pw, self.channels).permute(0, 1, 3, 2, 4, 5)
+            x = self.patch_proj(x.reshape(b, nh * nw, ph * pw * self.channels))
+        streams = [x]
+        if p["n_tokens"]["embed"] > 0:
+            streams.append(self.embed_token.to(self.dtype).expand(b, -1, -1))
+        if self.num_classes is not None:
+            if labels is None:
+                raise ValueError("`num_classes` set but `labels` is None")
+            streams.append(self.class_token(labels)[:, None, :])
+        # the streams meet in their promoted dtype, as jnp.concatenate does
+        dtype = functools.reduce(torch.promote_types, [s.dtype for s in streams])
+        x = self.PositionalEmbedding_0(torch.cat([s.to(dtype) for s in streams], dim=1))
+
+        layers = self._layers
+        if self.preprocess_depth is None:
+            for layer in layers:
+                x = layer(x)
+            out = x[:, self._out_idx]
+        else:
+            memory = x[:, self._cross_idx]
+            for layer in layers[:self.preprocess_depth]:
+                memory = layer(memory)
+            out = x[:, self._out_idx]
+            for layer in layers[self.preprocess_depth:]:
+                out = layer(out, memory=memory)
+
+        if self.embed_to_patch:  # b (h w) (p1 p2 c) -> b (h p1) (w p2) c
+            out = self.unpatch_proj(out[:, -p["num_patches"]:])
+            out = out.reshape(b, nh, nw, ph, pw, self.channels).permute(0, 1, 3, 2, 4, 5)
+            out = out.reshape(b, nh * ph, nw * pw, self.channels)
+        return out
+
+
+class AutoRegressive(ViT):
+    """Token-level AR model (vocab embedding + ViT trunk + LM head)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"AutoRegressive {_SLICE_7}")

@@ -28,9 +28,24 @@ multiple of 8 runs a kernel built for that width, any other C one built for
 the next power of two with the tail dims masked. The JAX package's d % 8
 rule was a Mosaic lane rule of the TPU, not a rule of the function.
 
+The BTHD/BHTC forward kernel (``csrc/attention_bthd.cu``) replaces two TPU
+kernels with one source that reads the layout through strides:
+``_fwd_kernel_bthd`` (row 7, reached through ``fused_attention_bthd`` and
+``fused_attention_bthd_dropout``) on q [B, Tq, H·d] and k, v [B, Tk, H·d],
+with cross lengths, an in-kernel causal mask and a shared post-softmax
+multiplier [Tq, Tk]; and ``_fwd_kernel`` (row 3, reached through
+``fused_attention``) on [B, H, T, d]. At the FFHQ128 ViT encoder's layer
+(B=64, H=4, d=128, T=1024, bf16) that is 1.37e11 FLOP against 268 MB, so
+its bound is the tensor-core rate (≈0.14 ms); it runs on CUDA-core FMAs far
+above it. The ViT's attention takes row 7 at every shape; row 3 has no
+model path in the port (the TPU reached it only for head dims whose lanes do
+not tile 128). Their backward kernels (rows 8 and 4) arrive with the ViT
+training slice: on a CUDA tensor the backward of these entries raises.
+
 A CPU tensor takes the plain versions (:func:`attention_packed_reference`,
-:func:`attention_packed_backward_reference`); a CUDA tensor launches the
-kernels or raises. There is no fallback between them.
+:func:`attention_packed_backward_reference`, :func:`attention_bthd_reference`,
+:func:`attention_bhtc_reference`); a CUDA tensor launches the kernels or
+raises. There is no fallback between them.
 """
 from __future__ import annotations
 
@@ -42,13 +57,18 @@ import torch
 
 __all__ = ["attention_packed", "attention_packed_reference",
            "attention_packed_backward", "attention_packed_backward_reference",
-           "fused_attention_packed"]
+           "fused_attention_packed", "attention_bthd", "attention_bthd_reference",
+           "attention_bhtc", "attention_bhtc_reference", "fused_attention_bthd",
+           "fused_attention_bthd_dropout", "fused_attention"]
 
 # launches of the forward and backward CUDA kernels in this process; read
 # and reset them as ``attention.launch_count`` / ``backward_launch_count`` to
 # count the launches of one run
 launch_count = 0
 backward_launch_count = 0
+# launches of the BTHD (row 7) and BHTC (row 3) forward kernel entry points
+bthd_launch_count = 0
+bhtc_launch_count = 0
 # dout tensors the autograd Function had to copy into the contiguous
 # [B, T, H·C] layout the backward reads (on any device)
 dout_copies = 0
@@ -281,3 +301,253 @@ def fused_attention_packed(qkv: torch.Tensor, n_heads: int,
     """
     scale = _check_qkv(qkv, n_heads, scale)
     return _FusedAttentionPacked.apply(qkv, n_heads, float(scale))
+
+
+# --------------------------------------------------------------------------
+# Separate q, k, v: BTHD [B, T, H·d] (row 7) and BHTC [B, H, T, d] (row 3)
+# --------------------------------------------------------------------------
+
+_TRAINING_SLICE = ("arrives with the ViT training slice (kernel rows 8 and 4); "
+                   "on a CPU tensor the plain version is differentiable")
+
+
+def _attention_heads(q, k, v, scale: float, causal: bool = False, mult=None):
+    """softmax(scale·QKᵀ)[∘mult]·V on [B, H, T, d] heads, step for step as
+    ``_fwd_kernel_bthd`` (``attention_pallas.py:676-707``): products on the
+    input values with f32 accumulation (operands cast to f32, exact for
+    bf16), softmax in f32, the normalised P (times ``mult``) cast to v's
+    dtype before P·V. Differentiable by autograd.
+
+    :return: out [B, H, Tq, d] in q's dtype, lse [B, H, Tq] f32 (f64 for
+        f64 input)
+    """
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    if causal:
+        tq, tk = s.shape[-2:]
+        above = torch.ones(tq, tk, dtype=torch.bool, device=s.device).triu(1)
+        s = s.masked_fill(above, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    weights = p / denom
+    if mult is not None:
+        weights = weights * mult.to(acc)
+    weights = weights.to(v.dtype).to(acc)
+    out = torch.matmul(weights, v.to(acc)).to(q.dtype)
+    return out, (m + torch.log(denom)).squeeze(-1)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, width = x.shape
+    return x.view(b, t, n_heads, width // n_heads).transpose(1, 2)
+
+
+def _check_bthd(q, k, v, n_heads: int, scale, causal: bool, mult):
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"q, k, v must be [B, T, H·d], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    b, tq, width = q.shape
+    if n_heads < 1 or width % n_heads:
+        raise ValueError(f"width {width} not divisible by {n_heads} heads")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != width:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"[{b}, Tk, {width}]")
+    if causal and k.shape[1] != tq:
+        raise ValueError("causal attention needs equal query and key lengths")
+    if mult is not None and tuple(mult.shape) != (tq, k.shape[1]):
+        raise ValueError(f"mult must be [Tq, Tk] = {(tq, k.shape[1])}, "
+                         f"got {tuple(mult.shape)}")
+    return 1.0 / math.sqrt(width // n_heads) if scale is None else scale
+
+
+def attention_bthd_reference(q, k, v, n_heads: int, scale: float, causal: bool = False,
+                             mult: torch.Tensor = None):
+    """Plain PyTorch version of the BTHD kernel (row 7).
+
+    :param q: [B, Tq, H·d]; k, v: [B, Tk, H·d]
+    :param causal: query i sees keys ≤ i (Tq = Tk)
+    :param mult: [Tq, Tk] post-softmax multiplier shared by batch and heads
+    :return: out [B, Tq, H·d] in q's dtype, lse [B, H, Tq] f32
+    """
+    scale = _check_bthd(q, k, v, n_heads, scale, causal, mult)
+    b, tq, width = q.shape
+    out, lse = _attention_heads(_split_heads(q, n_heads), _split_heads(k, n_heads),
+                                _split_heads(v, n_heads), scale, causal, mult)
+    return out.transpose(1, 2).reshape(b, tq, width), lse
+
+
+def attention_bhtc_reference(q, k, v, scale: float):
+    """Plain PyTorch version of the BHTC kernel (row 3), as ``_fwd_kernel``
+    (``attention_pallas.py:109-127``).
+
+    :param q, k, v: [B, H, T, d]
+    :return: out [B, H, T, d] in q's dtype, lse [B·H, T] f32
+    """
+    b, h, t, _ = q.shape
+    out, lse = _attention_heads(q, k, v, scale)
+    return out, lse.reshape(b * h, t)
+
+
+def _uses_kernel(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; other devices raise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"no attention kernel for device {x.device}")
+
+
+def _check_same(x: torch.Tensor, like: torch.Tensor, ch: int, what: str):
+    _check_kernel_input(x, ch, what)
+    if x.dtype != like.dtype or x.device != like.device:
+        raise ValueError(f"{what}: dtype and device must match q's")
+    if ch % 8 == 0 and x.data_ptr() % 16:
+        raise ValueError(f"{what}: the attention kernel needs 16-byte aligned tensors")
+
+
+def _call(symbol: str, argtypes, args, device):
+    from ot_vae_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library("attention_bthd"), symbol)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+
+
+def _launch_bthd(q, k, v, n_heads: int, scale: float, causal: bool, mult):
+    global bthd_launch_count
+    b, tq, width = q.shape
+    tk, ch = k.shape[1], width // n_heads
+    for x, what in ((q, "q"), (k, "k"), (v, "v"), (mult, "mult")):
+        if x is not None:
+            _check_same(x, q, ch, what)
+    _check_grid(b, n_heads)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n_heads, tq), dtype=torch.float32, device=q.device)
+    _call("attention_bthd_fwd",
+          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2,
+          [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           None if mult is None else mult.data_ptr(), out.data_ptr(), lse.data_ptr(),
+           b, tq, tk, n_heads, ch, float(scale), int(causal), _DTYPE_CODES[q.dtype]],
+          q.device)
+    bthd_launch_count += 1
+    return out, lse
+
+
+def _launch_bhtc(q, k, v, scale: float):
+    global bhtc_launch_count
+    b, h, t, ch = q.shape
+    for x, what in ((q, "q"), (k, "k"), (v, "v")):
+        _check_same(x, q, ch, what)
+    _check_grid(b, h)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    _call("attention_bhtc_fwd",
+          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int],
+          [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+           b, h, t, ch, float(scale), _DTYPE_CODES[q.dtype]], q.device)
+    bhtc_launch_count += 1
+    return out, lse
+
+
+def attention_bthd(q, k, v, n_heads: int, scale: float = None, causal: bool = False,
+                   mult: torch.Tensor = None):
+    """softmax(scale·QKᵀ)[∘mult]·V per head on q [B, Tq, H·d] and k, v
+    [B, Tk, H·d]: the row-7 kernel on a CUDA tensor, its plain version on a
+    CPU tensor.
+
+    :param scale: logit scale, 1/sqrt(d) when None
+    :return: out [B, Tq, H·d] in q's dtype, lse [B, H, Tq] f32
+    """
+    scale = _check_bthd(q, k, v, n_heads, scale, causal, mult)
+    if _uses_kernel(q):
+        return _launch_bthd(q, k, v, n_heads, scale, causal, mult)
+    return attention_bthd_reference(q, k, v, n_heads, scale, causal, mult)
+
+
+def _check_bhtc(q, k, v, scale):
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one [B, H, T, d] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def attention_bhtc(q, k, v, scale: float = None):
+    """softmax(scale·QKᵀ)V per (batch, head) on [B, H, T, d]: the row-3
+    kernel on a CUDA tensor, its plain version on a CPU tensor.
+
+    :return: out [B, H, T, d] in q's dtype, lse [B·H, T] f32
+    """
+    scale = _check_bhtc(q, k, v, scale)
+    if _uses_kernel(q):
+        return _launch_bhtc(q, k, v, scale)
+    return attention_bhtc_reference(q, k, v, scale)
+
+
+class _FusedAttentionBTHD(torch.autograd.Function):
+    """Row 7's kernel forward; its backward (row 8) is not ported yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mult, n_heads, scale, causal):
+        return attention_bthd(q, k, v, n_heads, scale, causal, mult)[0]
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError("backward of the BTHD attention kernel "
+                                  + _TRAINING_SLICE)
+
+
+class _FusedAttentionBHTC(torch.autograd.Function):
+    """Row 3's kernel forward; its backward (row 4) is not ported yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        return attention_bhtc(q, k, v, scale)[0]
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError("backward of the BHTC attention kernel "
+                                  + _TRAINING_SLICE)
+
+
+def fused_attention_bthd(q, k, v, n_heads: int, scale: float = None,
+                         causal: bool = False) -> torch.Tensor:
+    """softmax(scale·QKᵀ)V on three [B, T, H·d] tensors (counterpart of
+    ``fused_attention_bthd``, ``attention_pallas.py:895``); Tq ≠ Tk is
+    allowed, ``causal`` masks keys after the query (Tq = Tk).
+
+    :return: out [B, Tq, H·d] in q's dtype. A CPU tensor runs the plain
+        version, differentiable by autograd; a CUDA tensor the kernel, whose
+        backward raises until the ViT training slice
+    """
+    scale = _check_bthd(q, k, v, n_heads, scale, causal, None)
+    if not _uses_kernel(q):
+        return attention_bthd_reference(q, k, v, n_heads, scale, causal)[0]
+    return _FusedAttentionBTHD.apply(q, k, v, None, n_heads, float(scale), causal)
+
+
+def fused_attention_bthd_dropout(q, k, v, mult: torch.Tensor, n_heads: int,
+                                 scale: float = None, causal: bool = False) -> torch.Tensor:
+    """:func:`fused_attention_bthd` with a post-softmax multiplier ``mult``
+    [Tq, Tk] (dropout's keep mask over the keep probability, one for every
+    batch element and head; counterpart of ``fused_attention_bthd_dropout``,
+    ``attention_pallas.py:920``). The multiplier gets no gradient."""
+    scale = _check_bthd(q, k, v, n_heads, scale, causal, mult)
+    if not _uses_kernel(q):
+        return attention_bthd_reference(q, k, v, n_heads, scale, causal, mult.detach())[0]
+    return _FusedAttentionBTHD.apply(q, k, v, mult, n_heads, float(scale), causal)
+
+
+def fused_attention(q, k, v, scale: float = None) -> torch.Tensor:
+    """softmax(scale·QKᵀ)V on [B, H, T, d] (counterpart of
+    ``fused_attention``, ``attention_pallas.py:992``): the row-3 kernel on a
+    CUDA tensor, whose backward raises until the ViT training slice; the
+    plain version, differentiable by autograd, on a CPU tensor."""
+    scale = _check_bhtc(q, k, v, scale)
+    if not _uses_kernel(q):
+        return attention_bhtc_reference(q, k, v, scale)[0]
+    return _FusedAttentionBHTC.apply(q, k, v, float(scale))

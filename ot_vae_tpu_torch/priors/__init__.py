@@ -1,4 +1,5 @@
 from ot_vae_tpu_torch.priors.base import PriorModule
+from ot_vae_tpu_torch.priors.conditional_gaussian import ConditionalGaussianPrior
 from ot_vae_tpu_torch.priors.gaussian import GaussianPrior
 
-__all__ = ["PriorModule", "GaussianPrior"]
+__all__ = ["PriorModule", "GaussianPrior", "ConditionalGaussianPrior"]

@@ -1,8 +1,9 @@
 """Gaussian prior with the reparametrization trick
 (counterpart: ``ot_vae_tpu/priors/gaussian.py``).
 
-(μ, log σ²) are stacked on the last axis of the NHWC encoder output, and
-z = μ + σ·ε with σ = exp(log σ² / 2). The loss is the closed-form reverse
+(μ, log σ²) are stacked on the ``reparam_dim`` axis of the encoder output
+(the last, channels-last axis of NHWC by default; −2, the token axis, for the
+conditional ViT), and z = μ + σ·ε with σ = exp(log σ² / 2). The loss is the closed-form reverse
 KL(q || N(0, I)) per sample, or its Monte-Carlo estimate at z.
 """
 from __future__ import annotations
@@ -28,13 +29,16 @@ class GaussianPrior(PriorModule):
     :param fixed_var: unit variance; with a ``time`` input the variance is
         scaled by the time temperature.
     :param empirical_kl: Monte-Carlo KL at z instead of the closed form.
+    :param reparam_dim: axis carrying the stacked (μ, log σ²)
     """
 
     def __init__(self, loss_coeff: float = 1.0, annealing_steps: int = 0,
-                 empirical_kl: bool = False, fixed_var: bool = False):
+                 empirical_kl: bool = False, fixed_var: bool = False,
+                 reparam_dim: int = -1):
         super().__init__(loss_coeff, annealing_steps)
         self.empirical_kl = empirical_kl
         self.fixed_var = fixed_var
+        self.reparam_dim = reparam_dim
 
     def reparametrization(
         self, z: torch.Tensor, temperature: Optional[torch.Tensor] = None,
@@ -45,7 +49,7 @@ class GaussianPrior(PriorModule):
             if temperature is not None:
                 var = var * unsqueeze_like(temperature, var) + 1e-8
             return z, var
-        mu, log_var = torch.chunk(z, 2, dim=-1)
+        mu, log_var = torch.chunk(z, 2, dim=self.reparam_dim)
         return mu, torch.exp(log_var / 2.0)
 
     @staticmethod
@@ -59,8 +63,20 @@ class GaussianPrior(PriorModule):
         if self.fixed_var:
             return tuple(size)
         out = list(size)
-        out[-1] //= 2
+        out[self.reparam_dim] //= 2
         return tuple(out)
+
+    @staticmethod
+    def _noise(q_mean: torch.Tensor, generator: Optional[torch.Generator],
+               noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """ε in q_mean's shape and dtype: ``noise`` when given, else drawn
+        from ``generator``."""
+        if noise is None:
+            return torch.randn(q_mean.shape, generator=generator, dtype=q_mean.dtype,
+                               device=q_mean.device)
+        if noise.shape != q_mean.shape:
+            raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(q_mean.shape)}")
+        return noise.to(q_mean.dtype)
 
     def forward(self, x: torch.Tensor, step: Union[int, torch.Tensor] = 0,
                 generator: Optional[torch.Generator] = None,
@@ -73,12 +89,7 @@ class GaussianPrior(PriorModule):
         """
         q_mean, q_scale = self.reparametrization(x, temperature=time)
         p_mean, p_scale = self.reparametrization(torch.zeros_like(x))
-        if noise is None:
-            noise = torch.randn(q_mean.shape, generator=generator, dtype=q_mean.dtype,
-                                device=q_mean.device)
-        elif noise.shape != q_mean.shape:
-            raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(q_mean.shape)}")
-        z = q_mean + q_scale * noise.to(q_mean.dtype)
+        z = q_mean + q_scale * self._noise(q_mean, generator, noise)
         if self.empirical_kl:
             loss = empirical_reverse_kl(_normal_log_prob(z, p_mean, p_scale ** 2),
                                         _normal_log_prob(z, q_mean, q_scale ** 2), z)

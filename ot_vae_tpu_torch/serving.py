@@ -3,7 +3,9 @@
 Requests are padded up to the nearest batch bucket, so the card sees a few
 fixed shapes; raw images are normalised and outputs un-normalised with the
 model's inference transforms. Every endpoint runs under
-``torch.inference_mode()``. ``restore`` serves latent-transport
+``torch.inference_mode()`` and takes conditioning kwargs (``labels``) for a
+conditional model; batch-shaped ones are padded with zeros to the bucket
+alongside the images. ``restore`` serves latent-transport
 restoration: encode degraded images, transport their latents through a
 fitted ``LatentTransport``, decode.
 """
@@ -77,6 +79,18 @@ class InferenceEngine:
         n = x.shape[0]
         return self._pad(self.model.inference_preprocess(x), self._bucket(n)), n
 
+    def _kwargs(self, kwargs, n: int, bucket: int):
+        """Conditioning kwargs on the engine's device; arrays with the
+        request's batch are padded with zeros up to the bucket (the JAX
+        engine's ``_prep_kwargs``)."""
+        out = {}
+        for name, value in kwargs.items():
+            value = torch.as_tensor(np.asarray(value), device=self.device)
+            if value.dim() >= 1 and value.shape[0] == n:
+                value = self._pad(value, bucket)
+            out[name] = value
+        return out
+
     def _noise(self, noise, bucket: int) -> Optional[torch.Tensor]:
         if noise is None:
             return None
@@ -91,39 +105,45 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def encode(self, images, generator: Optional[torch.Generator] = None,
-               noise=None) -> np.ndarray:
+               noise=None, **kwargs) -> np.ndarray:
         """Raw NHWC images → latents z = μ + σ·ε. ``noise`` is ε for the
         request's rows; without it ε is drawn from ``generator``."""
         x, n = self._images(images)
         generator = generator if generator is not None else self._default_generator()
-        z = self.model.net.encode(x, generator, self._noise(noise, x.shape[0]))
+        z = self.model.net.encode(x, generator, self._noise(noise, x.shape[0]),
+                                  **self._kwargs(kwargs, n, x.shape[0]))
         return self._out(z, n)
 
     @torch.inference_mode()
-    def decode(self, latents) -> np.ndarray:
+    def decode(self, latents, **kwargs) -> np.ndarray:
         z = torch.as_tensor(np.asarray(latents, np.float32), device=self.device)
         n = z.shape[0]
-        out = self.model.net.decode(self._pad(z, self._bucket(n)))
+        bucket = self._bucket(n)
+        out = self.model.net.decode(self._pad(z, bucket), **self._kwargs(kwargs, n, bucket))
         return self._out(self.model.inference_postprocess(out), n)
 
     @torch.inference_mode()
-    def sample(self, batch_size: int,
-               generator: Optional[torch.Generator] = None) -> np.ndarray:
+    def sample(self, batch_size: int, generator: Optional[torch.Generator] = None,
+               **kwargs) -> np.ndarray:
+        """``batch_size`` samples from the prior, decoded (not bucketed, as
+        in the JAX engine); ``labels`` [batch_size] for a conditional model."""
         generator = generator if generator is not None else self._default_generator()
-        out = self.model.net.sample(batch_size, generator)
+        out = self.model.net.sample(batch_size, generator,
+                                    **self._kwargs(kwargs, batch_size, batch_size))
         return self._out(self.model.inference_postprocess(out), batch_size)
 
     @torch.inference_mode()
     def reconstruct(self, images, generator: Optional[torch.Generator] = None,
-                    noise=None) -> np.ndarray:
+                    noise=None, **kwargs) -> np.ndarray:
         x, n = self._images(images)
         generator = generator if generator is not None else self._default_generator()
-        out = self.model.net(x, generator, self._noise(noise, x.shape[0]))
+        out = self.model.net(x, generator, self._noise(noise, x.shape[0]),
+                             **self._kwargs(kwargs, n, x.shape[0]))
         return self._out(self.model.inference_postprocess(out), n)
 
     @torch.inference_mode()
-    def restore(self, images, transport, generator: Optional[torch.Generator] = None
-                ) -> np.ndarray:
+    def restore(self, images, transport, generator: Optional[torch.Generator] = None,
+                **kwargs) -> np.ndarray:
         """Restoration: encode raw degraded images (padded to the bucket),
         flatten, transport and unflatten their latents through a fitted
         ``LatentTransport`` (in this process, or read with its
@@ -136,6 +156,7 @@ class InferenceEngine:
                 "load one with LatentTransport.load_state()")
         x, n = self._images(images)
         generator = generator if generator is not None else self._default_generator()
-        z = self.model.net.encode(x, generator)
-        out = self.model.net.decode(transport.transport(z, generator))
+        kwargs = self._kwargs(kwargs, n, x.shape[0])
+        z = self.model.net.encode(x, generator, **kwargs)
+        out = self.model.net.decode(transport.transport(z, generator), **kwargs)
         return self._out(self.model.inference_postprocess(out), n)
