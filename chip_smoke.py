@@ -78,7 +78,32 @@ toolkit. Phases, each printing one line:
    reconstruct and sample, and img/s per endpoint;
 17. whole ViT path, f32 on the card against the port on the CPU: both ViT
    VAEs reconstruct a few images with the same ε and labels; then the
-   FFHQ128 ViT as served, bf16 on the card against bf16 on the CPU.
+   FFHQ128 ViT as served, bf16 on the card against bf16 on the CPU;
+18. BTHD and BHTC backward kernels: rows 8 and 4 (one source) against their
+   plain versions at the two ViTs' four train shapes (the CIFAR10 ViT's with
+   a seeded multiplier), a cross shape, a ragged T with an odd head dim,
+   causal, and causal with the multiplier at d = 96 and 128, bf16 and f32;
+   their times at the FFHQ128 ViT's train shapes (B=32) beside the bound,
+   the plain version, SDPA's backward (a yardstick only), and the port's
+   forward + backward beside SDPA's; then the fused_attention entry's
+   backward, the only way to row 4, at the ViTs' shapes;
+19. ViT train card vs CPU: f32, TF32 off, batch 4, two optimizer steps of
+   the conditional CIFAR10 ViT VAE (full width, dropout 0.1) and of the
+   FFHQ128 ViT VAE (full width, depth 2), from the same weights, images,
+   labels, ε, dropout masks (drawn on the CPU and handed to the card) and
+   flips; losses and the first step's gradients against the CPU and an f64
+   run, as phase 7;
+20. Trainer.fit of the conditional CIFAR10 ViT VAE at configs/vae/vit.yaml's
+   recipe (batch 50, dropout 0.1, flips, lr 1e-3) for one epoch of 12000
+   seeded synthetic images (240 steps), one validation with PSNR and a
+   checkpoint: finite, falling losses; per step exactly 6 row-7 and 6 row-8
+   launches, all 12 with the multiplier; 6 row-7 launches per validation
+   batch; then the checkpoint served with labels through
+   InferenceEngine(checkpoint_path=...) against the in-memory model;
+21. Trainer.fit of the FFHQ128 ViT VAE (bf16 activations, f32 parameters,
+   batch 32, lr 1e-3) for 20 steps on the seeded FFHQ128 fallback and one
+   validation: finite, falling losses, 16 row-7 and 16 row-8 launches per
+   step; prints steady img/s, peak memory and the dout copies per step.
 
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.
@@ -263,6 +288,32 @@ VIT_PATH_TOL = 1e-4
 # (PERF.md); the limits are about four times that
 VIT_BF16_PATH_TOL = 3e-2
 VIT_BF16_PATH_RMS_TOL = 5e-3
+# row-8 and row-4 checks as (B, Tq, Tk, H, d, causal, mult): the two ViTs'
+# four train shapes (the FFHQ128 ViT's encoder and decoder at batch 32, the
+# conditional CIFAR10 ViT's at batch 50 with the seeded multiplier that its
+# dropout of 0.1 draws), a cross shape, a ragged T with an odd head dim,
+# causal, and causal with the multiplier at d = 96 and 128. Both kernels take
+# the gates of row 2: bf16 max_rel_err (BF16_REL_TOL, with phase 10's RMS
+# floor) over each of dq, dk and dv, and f32 max abs error over max(1,
+# max|grad|) (BWD_TOL). On an H100 bf16 read max_rel_err up to 1.46e-2 (the
+# FFHQ128 encoder's shape) and f32 max abs error up to 3.6e-6 (PERF.md)
+BWD_BTHD_SHAPES = [(32, 1024, 1024, 4, 128, False, False),
+                   (32, 1024, 1024, 2, 128, False, False),
+                   (50, 19, 19, 4, 32, False, True), (50, 18, 18, 4, 32, False, True),
+                   (16, 77, 300, 3, 64, False, False), (16, 37, 37, 5, 13, False, False),
+                   (16, 200, 200, 2, 64, True, False), (8, 150, 150, 2, 96, True, True),
+                   (8, 150, 150, 2, 128, True, True)]
+VIT_TRAIN_BATCH = 32  # configs/vae/vit_ffhq128.yaml
+CIFAR_TRAIN_BATCH = 50  # configs/vae/vit.yaml
+# Adam's learning rate of the gated fits: the configs' (the model's default)
+CIFAR_TRAIN_LR = 1e-3
+VIT_TRAIN_LR = 1e-3
+# the CIFAR10 ViT fit: one epoch of 12000 seeded synthetic images at batch 50
+CIFAR_TRAIN_IMAGES = 12000
+# the trained CIFAR10 ViT's checkpoint served against the in-memory model,
+# max abs error over max(1, max|output|): the same weights, shapes and
+# kernels, and no cuDNN algorithm choice on the ViT path
+CIFAR_CKPT_TOL = 1e-5
 
 class CheckFailed(Exception):
     pass
@@ -702,6 +753,42 @@ def phase_serve_checkpoint(model, path: str, seed: int):
           f"checkpoint: served vs trained {err} > {tol}")
 
 
+def _check_train_runs(name, runs):
+    """Losses of the card's run against the CPU's (TRAIN_LOSS_RTOL), and the
+    first step's gradients of both against the f64 run (GRAD_RTOL of a
+    leaf's norm; leaves with no gradient in exact arithmetic within
+    GRAD_NOISE_TOL of the largest)."""
+    (card_l, card_g), (cpu_l, cpu_g), (_, exact) = runs["card"], runs["cpu"], runs["cpu64"]
+    loss_err = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(card_l, cpu_l)]
+    scale = max(g.abs().max().item() for g in exact.values())
+    worst = {"card": (0.0, ""), "cpu": (0.0, "")}
+    n_noise, card_cpu = 0, 0.0
+    for leaf, g in exact.items():
+        noise = g.abs().max().item() <= GRAD_NOISE * scale
+        n_noise += noise
+        if not noise:
+            card_cpu = max(card_cpu, (card_g[leaf] - cpu_g[leaf]).norm().item() / g.norm().item())
+        for side, grads in (("card", card_g), ("cpu", cpu_g)):
+            if noise:
+                ratio = grads[leaf].abs().max().item() / (GRAD_NOISE_TOL * scale)
+            else:
+                ratio = (grads[leaf] - g).norm().item() / (GRAD_RTOL * g.norm().item())
+            worst[side] = max(worst[side], (ratio, leaf))
+    print(f"train card vs CPU f32, {name}, batch 4, 2 steps: losses card {card_l} cpu "
+          f"{cpu_l} (rel err {loss_err[0]:.3e}, {loss_err[1]:.3e}; tol "
+          f"{TRAIN_LOSS_RTOL[0]:.0e}, {TRAIN_LOSS_RTOL[1]:.0e}); first step gradients vs "
+          f"f64 (tol {GRAD_RTOL:.0e} of a leaf's norm): card worst "
+          f"{worst['card'][0] * GRAD_RTOL:.3e} at {worst['card'][1]}, CPU worst "
+          f"{worst['cpu'][0] * GRAD_RTOL:.3e} at {worst['cpu'][1]}; card vs CPU up to "
+          f"{card_cpu:.3e}; {n_noise} leaves with no gradient in exact arithmetic", flush=True)
+    check(all(math.isfinite(v) for v in card_l)
+          and all(e <= t for e, t in zip(loss_err, TRAIN_LOSS_RTOL)),
+          f"train card vs CPU {name}: losses {card_l} vs {cpu_l}")
+    for side, (ratio, leaf) in worst.items():
+        check(ratio <= 1.0, f"train {name} {side} vs f64: gradient {leaf} off by "
+                            f"{ratio:.3f}x tol")
+
+
 def phase_train_card_vs_cpu(seed: int):
     """Two train steps at full width, batch 4, from the same weights and ε:
     f32 on the card, f32 and f64 on the CPU."""
@@ -731,34 +818,7 @@ def phase_train_card_vs_cpu(seed: int):
                 grads = {k: p.grad.detach().double().cpu()
                          for k, p in model.net.named_parameters()}
         runs[name] = (losses, grads)
-    (card_l, card_g), (cpu_l, cpu_g), (_, exact) = runs["card"], runs["cpu"], runs["cpu64"]
-    loss_err = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(card_l, cpu_l)]
-    scale = max(g.abs().max().item() for g in exact.values())
-    worst = {"card": (0.0, ""), "cpu": (0.0, "")}
-    n_noise, card_cpu = 0, 0.0
-    for name, g in exact.items():
-        noise = g.abs().max().item() <= GRAD_NOISE * scale
-        n_noise += noise
-        if not noise:
-            card_cpu = max(card_cpu, (card_g[name] - cpu_g[name]).norm().item() / g.norm().item())
-        for side, grads in (("card", card_g), ("cpu", cpu_g)):
-            if noise:
-                ratio = grads[name].abs().max().item() / (GRAD_NOISE_TOL * scale)
-            else:
-                ratio = (grads[name] - g).norm().item() / (GRAD_RTOL * g.norm().item())
-            worst[side] = max(worst[side], (ratio, name))
-    print(f"train card vs CPU f32, batch 4, 2 steps: losses card {card_l} cpu {cpu_l} "
-          f"(rel err {loss_err[0]:.3e}, {loss_err[1]:.3e}; tol {TRAIN_LOSS_RTOL[0]:.0e}, "
-          f"{TRAIN_LOSS_RTOL[1]:.0e}); first step gradients vs f64 (tol {GRAD_RTOL:.0e} of "
-          f"a leaf's norm): card worst {worst['card'][0] * GRAD_RTOL:.3e} at "
-          f"{worst['card'][1]}, CPU worst {worst['cpu'][0] * GRAD_RTOL:.3e} at "
-          f"{worst['cpu'][1]}; card vs CPU up to {card_cpu:.3e}; {n_noise} leaves with "
-          f"no gradient in exact arithmetic", flush=True)
-    check(all(math.isfinite(v) for v in card_l)
-          and all(e <= t for e, t in zip(loss_err, TRAIN_LOSS_RTOL)),
-          f"train card vs CPU: losses {card_l} vs {cpu_l}")
-    for side, (ratio, name) in worst.items():
-        check(ratio <= 1.0, f"train {side} vs f64: gradient {name} off by {ratio:.3f}x tol")
+    _check_train_runs("FFHQ128 CNN", runs)
 
 
 def phase_small_heads(attention):
@@ -1249,31 +1309,37 @@ def _serve_checked(attention, engine, requests, expected):
 
 
 def cifar_vit_vae(seed: int, dtype=torch.float32):
-    """The conditional CIFAR10 ViT VAE of configs/vae/vit.yaml, weights from
-    ``seed``."""
+    """The conditional CIFAR10 ViT VAE of configs/vae/vit.yaml (dropout 0.1,
+    PSNR metric, Adam at the model's default 1e-3), weights from ``seed``."""
     from ot_vae_tpu_torch.data import cifar10_transforms
+    from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
     from ot_vae_tpu_torch.models import VAE
     from ot_vae_tpu_torch.networks.vit import ViT
     from ot_vae_tpu_torch.priors import ConditionalGaussianPrior
 
     torch.manual_seed(seed)
     model = VAE(ViT(**CIFAR_VIT_ENCODER, dtype=dtype), ViT(**CIFAR_VIT_DECODER, dtype=dtype),
-                ConditionalGaussianPrior(**CIFAR_VIT_PRIOR), conditional=True)
+                ConditionalGaussianPrior(**CIFAR_VIT_PRIOR),
+                metrics=MetricCollection({"psnr": PSNR()}), conditional=True)
     model.inference_preprocess, model.inference_postprocess = cifar10_transforms()
     return model
 
 
-def ffhq_vit_vae(seed: int, dtype=torch.bfloat16):
-    """The FFHQ128 ViT VAE of configs/vae/vit_ffhq128.yaml, weights from
-    ``seed`` (f32 parameters, ``dtype`` activations)."""
+def ffhq_vit_vae(seed: int, dtype=torch.bfloat16, depth: int = 8):
+    """The FFHQ128 ViT VAE of configs/vae/vit_ffhq128.yaml (PSNR metric, Adam
+    at the model's default 1e-3), weights from ``seed`` (f32 parameters,
+    ``dtype`` activations); ``depth`` cuts both ViTs' depth."""
     from ot_vae_tpu_torch.data import ffhq128_transforms
+    from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
     from ot_vae_tpu_torch.models import VAE
     from ot_vae_tpu_torch.networks.vit import ViT
     from ot_vae_tpu_torch.priors import GaussianPrior
 
     torch.manual_seed(seed)
-    model = VAE(ViT(**FFHQ_VIT_ENCODER, dtype=dtype), ViT(**FFHQ_VIT_DECODER, dtype=dtype),
-                GaussianPrior(loss_coeff=0.1, reparam_dim=-1))
+    model = VAE(ViT(**{**FFHQ_VIT_ENCODER, "depth": depth}, dtype=dtype),
+                ViT(**{**FFHQ_VIT_DECODER, "depth": depth}, dtype=dtype),
+                GaussianPrior(loss_coeff=0.1, reparam_dim=-1),
+                metrics=MetricCollection({"psnr": PSNR()}))
     model.inference_preprocess, model.inference_postprocess = ffhq128_transforms()
     return model
 
@@ -1398,6 +1464,368 @@ def phase_vit_whole_path(cifar_engine, ffhq_engine, seed: int):
               f"whole path {name} bf16: card vs CPU {err} > {tol} or rms {rms} > {rms_tol}")
 
 
+def _gate_backward(name, dtype, grads, refs):
+    """Check (dq, dk, dv) against the plain version's; return the largest
+    max abs error."""
+    errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
+    rels = [max_rel_err(g, r, 1, SMALL_FLOOR) for g, r in zip(grads, refs)]
+    if dtype == torch.bfloat16:
+        gate, ok = (f"max_rel_err dq {rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} "
+                    f"(tol {BF16_REL_TOL:.1e})", max(rels) <= BF16_REL_TOL)
+    else:
+        tols = [BWD_TOL * max(1.0, r.float().abs().max().item()) for r in refs]
+        gate = f"(tol {max(tols):.3e})"
+        ok = all(e <= t for e, t in zip(errs, tols))
+    print(f"{name}: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} {gate}",
+          flush=True)
+    check(all(math.isfinite(e) for e in errs) and ok, f"{name}: abs {errs}, rel {rels}")
+    return max(errs)
+
+
+def phase_bthd_backward(attention):
+    """Rows 8 and 4 against their plain versions; their times at the FFHQ128
+    ViT's train shapes; the fused_attention entry's backward launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2579)
+    worst = {"bthd": 0.0, "bhtc": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for b, tq, tk, h, d, causal, mult in BWD_BTHD_SHAPES:
+            q, k, v, m = _bthd_inputs(gen, b, tq, tk, h, d, mult, dtype)
+            dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            scale = 1.0 / math.sqrt(d)
+            out, lse = attention.attention_bthd(q, k, v, h, scale, causal, m)
+            grads = attention.attention_bthd_backward(q, k, v, out, lse, dout, h, scale,
+                                                      causal, m)
+            torch.cuda.synchronize()
+            refs = attention.attention_bthd_backward_reference(q, k, v, out, lse, dout, h,
+                                                               scale, causal, m)
+            shape = (f"B={b} Tq={tq} Tk={tk} H={h} d={d}" + (" causal" if causal else "")
+                     + (" mult" if mult else ""))
+            err = _gate_backward(f"bthd backward check {name} {shape}", dtype, grads, refs)
+            if dtype == torch.bfloat16:
+                worst["bthd"] = max(worst["bthd"], err)
+            if tq == tk and not (causal or mult):
+                qb, kb, vb, ob, db = (_bhtc(x, h) for x in (q, k, v, out, dout))
+                ob, lse_b = attention.attention_bhtc(qb, kb, vb, scale)
+                grads = attention.attention_bhtc_backward(qb, kb, vb, ob, lse_b, db, scale)
+                torch.cuda.synchronize()
+                refs = attention.attention_bhtc_backward_reference(qb, kb, vb, ob, lse_b, db,
+                                                                   scale)
+                err = _gate_backward(f"bhtc backward check {name} B={b} H={h} T={tq} d={d}",
+                                     dtype, grads, refs)
+                if dtype == torch.bfloat16:
+                    worst["bhtc"] = max(worst["bhtc"], err)
+                del qb, kb, vb, ob, db, lse_b
+            del q, k, v, m, dout, out, lse, grads, refs
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = {}
+    for h in (4, 2):  # the FFHQ128 ViT's encoder and decoder layers
+        b, t, d, dtype = VIT_TRAIN_BATCH, 1024, 128, torch.bfloat16
+        q, k, v, _ = _bthd_inputs(gen, b, t, t, h, d, False, dtype)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        scale = 1.0 / math.sqrt(d)
+        out, lse = attention.attention_bthd(q, k, v, h, scale)
+        qb, kb, vb, ob, db = (_bhtc(x, h) for x in (q, k, v, out, dout))
+        lse_b = lse.view(b * h, t)
+        # q, k, v, out and dout read once, dq, dk and dv written once (2 bytes
+        # an entry), lse read (f32); S, dP, dV, dQ and dK are 2·T²·d FLOP
+        # each per (batch, head)
+        n_bytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+        flops = 10.0 * t * t * d * b * h
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        bound = {"bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
+        # SDPA (a yardstick only) on the [B, H, T, d] copies: its backward
+        # from one retained forward graph, and forward + backward
+        sq, sk, sv = (x.detach().requires_grad_() for x in (qb, kb, vb))
+        sdpa_out = sdpa(sq, sk, sv, scale=scale)
+        library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (sq, sk, sv), db,
+                                                         retain_graph=True), flush)
+        sdpa_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa(sq, sk, sv, scale=scale), (sq, sk, sv), db), flush)
+        xq, xk, xv = (x.detach().requires_grad_() for x in (q, k, v))
+        timings[("bthd", h)] = {
+            "ms": time_ms(lambda: attention.attention_bthd_backward(
+                q, k, v, out, lse, dout, h, scale), flush, reps=10),
+            "plain_ms": time_ms(lambda: attention.attention_bthd_backward_reference(
+                q, k, v, out, lse, dout, h, scale), flush, reps=5),
+            "library_ms": library_ms,
+            "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                attention.fused_attention_bthd(xq, xk, xv, h, scale), (xq, xk, xv), dout),
+                flush, reps=10),
+            "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, **bound}
+        timings[("bhtc", h)] = {
+            "ms": time_ms(lambda: attention.attention_bhtc_backward(
+                qb, kb, vb, ob, lse_b, db, scale), flush, reps=10),
+            "plain_ms": time_ms(lambda: attention.attention_bhtc_backward_reference(
+                qb, kb, vb, ob, lse_b, db, scale), flush, reps=5),
+            "library_ms": library_ms, **bound}
+        for kind in ("bthd", "bhtc"):
+            row = timings[(kind, h)]
+            both = (f"; fwd+bwd: port {row['fwd_bwd_ms']:.4f} ms, sdpa "
+                    f"{row['sdpa_fwd_bwd_ms']:.4f} ms" if kind == "bthd" else "")
+            print(f"{kind} backward time bf16 B={b} T={t} H={h} d={d}: kernel "
+                  f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                  f"{flops:.3e} FLOP, {n_bytes / 1e6:.1f} MB), plain {row['plain_ms']:.4f} "
+                  f"ms, sdpa backward {row['library_ms']:.4f} ms{both}; "
+                  f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+        del q, k, v, dout, out, lse, qb, kb, vb, ob, db, lse_b, sq, sk, sv, sdpa_out, xq, xk, xv
+    del flush
+
+    # the fused_attention entry's backward (row 4) at the ViTs' train shapes,
+    # as a caller holding [B, H, T, d] tensors would reach it
+    attention.bhtc_bwd_launch_count = 0
+    for b, tq, tk, h, d, causal, mult in BWD_BTHD_SHAPES[:4]:
+        x = torch.randn((b, h, tq, d), generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        attention.fused_attention(x, x, x).sum().backward()
+        torch.cuda.synchronize()
+        check(x.grad.shape == x.shape and bool(torch.isfinite(x.grad).all()),
+              f"fused_attention backward B={b} H={h} T={tq} d={d}")
+    entry_launches = attention.bhtc_bwd_launch_count
+    check(entry_launches == 4, f"fused_attention's backward launched row 4 "
+                               f"{entry_launches} times, expected 4")
+    print(f"fused_attention entry backward at the ViTs' 4 train shapes: row 4 launches "
+          f"{entry_launches}", flush=True)
+    return worst, timings, entry_launches
+
+
+class DropoutTape:
+    """Within ``with``: the first run's dropout keep masks, drawn on the CPU
+    from that run's generator and recorded in call order, are handed to the
+    later runs (after ``rewind()``) on their own device, so that every run
+    drops the same entries."""
+
+    def __init__(self):
+        from ot_vae_tpu_torch.networks import nets_utils
+
+        self.module, self.draw = nets_utils, nets_utils.dropout_keep
+        self.masks, self.at = [], 0
+
+    def __call__(self, shape, keep_prob, generator, device):
+        if self.at == len(self.masks):
+            self.masks.append(self.draw(shape, keep_prob, generator, "cpu"))
+        mask = self.masks[self.at]
+        self.at += 1
+        check(tuple(mask.shape) == tuple(shape), f"dropout tape: mask {tuple(mask.shape)} "
+                                                 f"replayed for {tuple(shape)}")
+        return mask.to(device)
+
+    def rewind(self):
+        self.at = 0
+
+    def __enter__(self):
+        self.module.dropout_keep = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.dropout_keep = self.draw
+
+
+def phase_vit_train_card_vs_cpu(seed: int):
+    """Two train steps at batch 4 from the same weights, images, labels, ε,
+    dropout masks and flips: f32 on the CPU (which draws the masks), on the
+    card and in f64 on the CPU, for the conditional CIFAR10 ViT VAE (full
+    width, dropout 0.1) and the FFHQ128 ViT VAE (full width, depth 2)."""
+    from ot_vae_tpu_torch.data import CIFAR10, ArrayDataset, BaseDatamodule
+    from ot_vae_tpu_torch.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 5)
+    dm = CIFAR10(synthetic_train=64, synthetic_test=10, train_batch_size=4, seed=seed)
+    cifar_batches = list(dm.train_batches(0))[:2]  # normalised and flipped
+    ffhq_images = [rng.uniform(0, 1, (4, 128, 128, 3)).astype(np.float32) for _ in range(2)]
+    cases = [("CIFAR10 ViT", cifar_vit_vae, cifar_batches, (1, 128)),
+             ("FFHQ128 ViT depth 2", lambda s, dtype: ffhq_vit_vae(s, dtype, depth=2),
+              [(x, np.zeros(4, np.int32)) for x in ffhq_images], (1024, 256))]
+    for name, build, batches, latent in cases:
+        state = build(seed + 6, torch.float32).state_dict()
+        noise = [rng.standard_normal((4, *latent)).astype(np.float32) for _ in batches]
+        runs = {}
+        with DropoutTape() as tape:
+            for run, device, dtype in (("cpu", "cpu", torch.float32),
+                                       ("card", "cuda", torch.float32),
+                                       ("cpu64", "cpu", torch.float64)):
+                tape.rewind()
+                model = build(seed + 6, dtype)
+                model.load_state_dict(state, strict=True)
+                model.to(dtype)
+                trainer = Trainer(device=device, seed=seed)
+                trainer.setup_fit(model, BaseDatamodule(
+                    train_dataset=ArrayDataset(*batches[0])))
+                losses, grads = [], None
+                for i, (batch, eps) in enumerate(zip(batches, noise)):
+                    logs, _ = trainer.train_step(model, batch, noise=eps,
+                                                 dropout_rng=trainer.generator(4, 0, i))
+                    losses.append(float(logs["train/loss/total"]))
+                    if grads is None:
+                        grads = {k: p.grad.detach().double().cpu()
+                                 for k, p in model.net.named_parameters()}
+                runs[run] = (losses, grads)
+            n_masks = len(tape.masks)
+        _check_train_runs(f"{name}: {n_masks} dropout masks handed across", runs)
+
+
+def _fit(attention, model, dm, workdir: Path, seed: int, **trainer_kw):
+    """Trainer.fit with a launch probe, a recorder and a checkpoint; the
+    BTHD counts set to 0 before the fit and read after."""
+    from ot_vae_tpu_torch.trainer import Callback, ModelCheckpointCallback, Trainer
+
+    class LaunchProbe(Callback):
+        """Synchronises after each train step and records the host time and
+        the BTHD counters (row 7, row 8, launches with a multiplier, dout
+        copies), at the start of the fit and after each step."""
+
+        def __init__(self):
+            self.rows = []
+
+        def _record(self):
+            torch.cuda.synchronize()
+            self.rows.append((time.perf_counter(), attention.bthd_launch_count,
+                              attention.bthd_bwd_launch_count, attention.mult_launch_count,
+                              attention.dout_copies))
+
+        def on_train_epoch_start(self, trainer, model):
+            if not self.rows:
+                self._record()
+
+        def on_train_batch_end(self, trainer, model, outputs, batch, batch_idx):
+            self._record()
+
+        def steps(self):
+            """Per-step differences of (row 7, row 8, multiplier, copies)."""
+            return [tuple(b - a for a, b in zip(r0[1:], r1[1:]))
+                    for r0, r1 in zip(self.rows[:-1], self.rows[1:])]
+
+        def img_s(self, batch: int, steady: int = 3) -> float:
+            """Steady train img/s, from the end of step ``steady`` on."""
+            times = [r[0] for r in self.rows]
+            return (len(times) - 1 - steady) * batch / (times[-1] - times[steady])
+
+    probe, logger = LaunchProbe(), _Recorder()
+    ckpt = ModelCheckpointCallback(dirpath=str(workdir))
+    trainer = Trainer(max_epochs=1, log_every_n_steps=1, callbacks=[probe, ckpt],
+                      logger=logger, seed=seed, **trainer_kw)
+    torch.cuda.reset_peak_memory_stats()
+    attention.bthd_launch_count = attention.bthd_bwd_launch_count = 0
+    attention.mult_launch_count = attention.dout_copies = 0
+    attention.launch_count = attention.backward_launch_count = 0
+    trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    check(attention.launch_count == attention.backward_launch_count == 0,
+          "the ViT path launched the packed-attention kernels")
+    launches = {"forward": attention.bthd_launch_count,
+                "backward": attention.bthd_bwd_launch_count,
+                "mult": attention.mult_launch_count}
+    losses = [m["train/loss/total"] for _, m in logger.rows if "train/loss/total" in m]
+    psnr = trainer.logged_metrics.get("val/metrics/psnr", float("nan"))
+    return trainer, probe, ckpt, losses, psnr, launches
+
+
+def phase_train_cifar_vit(attention, seed: int, workdir: Path):
+    """Trainer.fit of the conditional CIFAR10 ViT VAE at configs/vae/vit.yaml's
+    recipe on the seeded CIFAR10 fallback; the checkpoint served with
+    labels."""
+    from ot_vae_tpu_torch.data import CIFAR10
+    from ot_vae_tpu_torch.serving import InferenceEngine
+
+    dm = CIFAR10(synthetic_train=CIFAR_TRAIN_IMAGES, train_batch_size=CIFAR_TRAIN_BATCH,
+                 seed=seed)
+    dm.setup()
+    model = cifar_vit_vae(seed)
+    model.learning_rate = CIFAR_TRAIN_LR
+    trainer, probe, ckpt, losses, psnr, launches = _fit(attention, model, dm,
+                                                        workdir / "cifar_vit", seed)
+    n_steps = dm.steps_per_epoch("train")
+    first, last = (statistics.mean(losses[:20]), statistics.mean(losses[-20:]))
+    check(len(losses) == n_steps, f"CIFAR10 ViT fit: {len(losses)} losses logged")
+    check(all(math.isfinite(v) for v in losses), "CIFAR10 ViT fit: non-finite loss")
+    check(last < first, f"CIFAR10 ViT fit: loss did not fall ({first} -> {last})")
+    check(math.isfinite(psnr), f"CIFAR10 ViT fit: validation PSNR {psnr}")
+    steps = probe.steps()
+    bad = [i for i, s in enumerate(steps) if s[:3] != (6, 6, 12)]
+    check(len(steps) == n_steps and not bad,
+          f"CIFAR10 ViT fit: steps {bad[:5]} launched (row 7, row 8, with mult) "
+          f"{[steps[i][:3] for i in bad[:5]]}, expected (6, 6, 12)")
+    # a validation batch: the encoder once (its latents come from the same
+    # pass) and the decoder, 3 blocks each, no dropout
+    val_batches = dm.steps_per_epoch("val")
+    check(launches == {"forward": 6 * n_steps + 6 * val_batches, "backward": 6 * n_steps,
+                       "mult": 12 * n_steps}, f"CIFAR10 ViT fit: launches {launches}")
+    check(ckpt.best_path is not None, "CIFAR10 ViT fit: no checkpoint saved")
+    img_s = probe.img_s(CIFAR_TRAIN_BATCH)
+    print(f"train CIFAR10 ViT f32 full width, batch {CIFAR_TRAIN_BATCH}, dropout 0.1, flips, "
+          f"lr {CIFAR_TRAIN_LR:g}: {n_steps} steps, loss (mean of 20) {first:.4f} -> "
+          f"{last:.4f}, val PSNR {psnr:.3f} dB; launches per step 6 row 7 + 6 row 8, all "
+          f"with the multiplier (run: {launches}, {val_batches} validation batches); steady "
+          f"train img/s (synchronised) {img_s:.1f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    served = InferenceEngine(cifar_vit_vae(seed + 1), checkpoint_path=ckpt.best_path)
+    trained = InferenceEngine(model)
+    check(served.model.inference_preprocess == trained.model.inference_preprocess,
+          "CIFAR10 ViT checkpoint: inference transforms differ")
+    rng = np.random.default_rng(seed + 7)
+    images = dm.test_dataset.images[:8]
+    labels = dm.test_dataset.labels[:8]
+    noise = rng.standard_normal((8, *model.latent_size)).astype(np.float32)
+    got = served.reconstruct(images, noise=noise, labels=labels)
+    want = trained.reconstruct(images, noise=noise, labels=labels)
+    err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+    print(f"serve CIFAR10 ViT checkpoint: reconstruct 8 with labels from "
+          f"{Path(ckpt.best_path).name} vs the trained model: max_abs_err over max(1, range) "
+          f"{err:.3e} (tol {CIFAR_CKPT_TOL:.0e})", flush=True)
+    check(got.shape == (8, 32, 32, 3) and bool(np.isfinite(got).all())
+          and err <= CIFAR_CKPT_TOL, f"CIFAR10 ViT checkpoint: served vs trained {err}")
+    return launches
+
+
+def phase_train_ffhq_vit(attention, seed: int, workdir: Path):
+    """Trainer.fit of the FFHQ128 ViT VAE at full width and depth, bf16
+    activations, batch 32, TRAIN_STEPS steps and one validation."""
+    from ot_vae_tpu_torch.data import FFHQ128
+
+    data = workdir / "ffhq128"
+    dm = FFHQ128(root=(str(data / "train"), str(data / "test")),
+                 synthetic_train=VIT_TRAIN_BATCH * TRAIN_STEPS, synthetic_test=72,
+                 train_batch_size=VIT_TRAIN_BATCH, val_batch_size=VIT_TRAIN_BATCH, seed=seed)
+    dm.setup()
+    model = ffhq_vit_vae(seed)
+    model.learning_rate = VIT_TRAIN_LR
+    trainer, probe, ckpt, losses, psnr, launches = _fit(attention, model, dm,
+                                                        workdir / "ffhq_vit", seed)
+    check(len(losses) == TRAIN_STEPS, f"FFHQ128 ViT fit: {len(losses)} losses logged")
+    check(all(math.isfinite(v) for v in losses), f"FFHQ128 ViT fit: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"FFHQ128 ViT fit: loss did not fall ({losses[0]} -> "
+                                  f"{losses[-1]})")
+    check(math.isfinite(psnr), f"FFHQ128 ViT fit: validation PSNR {psnr}")
+    steps = probe.steps()
+    bad = [i for i, s in enumerate(steps) if s[:3] != (16, 16, 0)]
+    check(len(steps) == TRAIN_STEPS and not bad,
+          f"FFHQ128 ViT fit: steps {bad[:5]} launched (row 7, row 8, with mult) "
+          f"{[steps[i][:3] for i in bad[:5]]}, expected (16, 16, 0)")
+    val_batches = dm.steps_per_epoch("val")
+    check(launches == {"forward": 16 * TRAIN_STEPS + 16 * val_batches,
+                       "backward": 16 * TRAIN_STEPS, "mult": 0},
+          f"FFHQ128 ViT fit: launches {launches}")
+    copies = sum(s[3] for s in steps) / TRAIN_STEPS
+    print("train FFHQ128 ViT total loss per step: " + ", ".join(f"{v:.4g}" for v in losses),
+          flush=True)
+    print(f"train FFHQ128 ViT bf16 full width, batch {VIT_TRAIN_BATCH}, lr {VIT_TRAIN_LR:g}: "
+          f"{TRAIN_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, val PSNR "
+          f"{psnr:.3f} dB; launches per step 16 row 7 + 16 row 8 (run: {launches}, "
+          f"{val_batches} validation batches); steady train img/s (steps 4-{TRAIN_STEPS}, "
+          f"synchronised) {probe.img_s(VIT_TRAIN_BATCH):.1f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; dout copies per step "
+          f"{copies:.1f}", flush=True)
+    return launches
+
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1446,6 +1874,11 @@ def main(argv=None) -> int:
         ffhq_launches, ffhq_engine = phase_serve_ffhq_vit(attention, args.seed)
         phase_vit_whole_path(cifar_engine, ffhq_engine, args.seed)
         del cifar_engine, ffhq_engine
+        bwd_bthd_worst, bwd_bthd_timings, bhtc_bwd_launches = phase_bthd_backward(attention)
+        phase_vit_train_card_vs_cpu(args.seed)
+        cifar_train = phase_train_cifar_vit(attention, args.seed, workdir)
+        ffhq_train = phase_train_ffhq_vit(attention, args.seed, workdir)
+        shutil.rmtree(workdir, ignore_errors=True)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1499,10 +1932,12 @@ def main(argv=None) -> int:
     }]
     for kind, source_line, launches_by_path in (
             ("bthd", "ot_vae_tpu/ops/attention_pallas.py:676",
-             {"vit_cifar10_serve": cifar_launches, "vit_ffhq128_serve": ffhq_launches}),
+             {"vit_cifar10_serve": cifar_launches, "vit_ffhq128_serve": ffhq_launches,
+              "vit_cifar10_train": cifar_train["forward"],
+              "vit_ffhq128_train": ffhq_train["forward"]}),
             ("bhtc", "ot_vae_tpu/ops/attention_pallas.py:109",
-             {"vit_cifar10_serve": 0, "vit_ffhq128_serve": 0,
-              "fused_attention_entry": bhtc_launches})):
+             {"vit_cifar10_serve": 0, "vit_ffhq128_serve": 0, "vit_cifar10_train": 0,
+              "vit_ffhq128_train": 0, "fused_attention_entry": bhtc_launches})):
         row = bthd_timings[(kind, 4)]  # the FFHQ128 ViT encoder's layer
         kernels.append({
             "name": f"attention_{kind}_fwd",
@@ -1512,6 +1947,28 @@ def main(argv=None) -> int:
             "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path,
             "max_abs_err": bthd_worst[kind],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    for kind, source_line, launches_by_path in (
+            ("bthd", "ot_vae_tpu/ops/attention_pallas.py:710",
+             {"vit_cifar10_train": cifar_train["backward"],
+              "vit_ffhq128_train": ffhq_train["backward"]}),
+            ("bhtc", "ot_vae_tpu/ops/attention_pallas.py:130",
+             {"vit_cifar10_train": 0, "vit_ffhq128_train": 0,
+              "fused_attention_entry": bhtc_bwd_launches})):
+        row = bwd_bthd_timings[(kind, 4)]  # the FFHQ128 ViT encoder's layer, batch 32
+        kernels.append({
+            "name": f"attention_{kind}_bwd",
+            "route": "cuda",
+            "source": "ot_vae_tpu_torch/ops/csrc/attention_bthd_bwd.cu",
+            "replaces": source_line,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": bwd_bthd_worst[kind],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],

@@ -5,7 +5,10 @@ A datamodule owns per-split arrays, transforms and batch sizes and yields
 numpy NHWC batches ``(images, labels)``. Batches have a fixed shape (the
 ragged last batch is dropped) and the training split is shuffled with
 ``default_rng(seed + epoch)``, so the batches equal the JAX package's one
-for one. The C++ prefetching batcher of the JAX package is not ported yet.
+for one. A transform that draws (CIFAR10's random flip) draws from a
+``torch.Generator`` seeded from (seed, epoch), where the JAX package's host
+path draws from numpy's global, unseeded generator. The C++ prefetching
+batcher of the JAX package is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import dataclasses
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ot_vae_tpu_torch.data.transforms import Identity, Transform
 
@@ -37,9 +41,16 @@ class ArrayDataset:
         if shuffle:
             rng = np.random.default_rng(None if seed is None else seed + epoch)
             rng.shuffle(idx)
+        draws = torch.Generator()
+        if seed is None:
+            draws.seed()
+        else:
+            state = np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]
+            draws.manual_seed(int(state >> 1))
         for start in range(0, n - batch_size + 1, batch_size):
             sel = idx[start:start + batch_size]
-            yield np.asarray(self.transform(self.images[sel]), np.float32), self.labels[sel]
+            yield (np.asarray(self.transform(self.images[sel], draws), np.float32),
+                   self.labels[sel])
 
 
 def dataset_split(images: np.ndarray, labels: np.ndarray, split: float,

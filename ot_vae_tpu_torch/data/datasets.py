@@ -151,8 +151,8 @@ class CIFAR10(BaseDatamodule):
     """32×32 RGB in 10 classes, normalised with CIFAR10's mean and std. The
     validation split is the ``test_val_split`` share of the test set, the
     test split the rest; predict reads the whole test set raw. The training
-    split's random flip (``random_flip``) arrives with the ViT training
-    slice."""
+    split flips each image with probability 0.5 (``random_flip``), drawn
+    from a generator seeded from the datamodule's seed and the epoch."""
 
     MEAN: Tuple[float, ...] = CIFAR10_MEAN
     STD: Tuple[float, ...] = CIFAR10_STD

@@ -152,18 +152,33 @@ def cifar10_transforms() -> Tuple[Normalize, UnNormalize]:
 
 @dataclasses.dataclass(frozen=True)
 class RandomHorizontalFlip(Transform):
-    """Flip W with probability p: CIFAR10's training augmentation, which
-    arrives with the ViT training slice."""
+    """Flip W with probability p, per batch element of an NHWC batch (the
+    whole image when unbatched): CIFAR10's training augmentation
+    (counterpart: ``ot_vae_tpu/data/transforms.py:122-139``). The flips are
+    drawn from ``generator``, a ``torch.Generator`` on x's device (on the
+    CPU for numpy arrays); the JAX host path draws them from numpy's global,
+    unseeded generator instead.
+
+    :raises ValueError: without a generator
+    """
 
     p: float = 0.5
 
     def __call__(self, x, generator=None):
-        raise NotImplementedError(
-            "RandomHorizontalFlip arrives with the ViT training slice (6b)")
+        if generator is None:
+            raise ValueError("RandomHorizontalFlip needs a generator")
+        batched = x.ndim == 4
+        as_numpy = isinstance(x, np.ndarray)
+        flip = torch.rand(x.shape[0] if batched else 1, generator=generator,
+                          device="cpu" if as_numpy else x.device) < self.p
+        flip = flip.reshape((-1, 1, 1, 1) if batched else ())
+        if as_numpy:
+            return np.where(flip.numpy(), x[..., ::-1, :], x)
+        return torch.where(flip, x.flip(-2), x)
 
 
 _REGISTRY = {cls.__name__: cls for cls in (Identity, Normalize, UnNormalize, Pad,
-                                            CenterCrop, GaussianBlur)}
+                                            CenterCrop, GaussianBlur, RandomHorizontalFlip)}
 
 
 def to_spec(t: Transform) -> dict:

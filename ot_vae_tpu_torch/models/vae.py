@@ -14,7 +14,9 @@ from a fresh generator seeded 0 on every call, as the JAX package uses
 Conditioning (``labels``) reaches only the nets whose ``forward`` (or the
 autoencoder's ``encode``/``decode``) accepts it, as ``_call_net`` does in the
 JAX package, and always the prior; a conditional ``VAE`` hands each batch's
-labels on as ``kwargs``.
+labels on as ``kwargs``. The train step's dropout generator
+(``dropout_rng``) reaches the nets that accept one the same way, as the JAX
+``loss_fn`` hands its ``dropout`` key to the nets' apply.
 """
 from __future__ import annotations
 
@@ -31,18 +33,19 @@ from ot_vae_tpu_torch.utils import mean_replicated_batch, replicate_batch
 __all__ = ["VAENet", "VAE"]
 
 
-def _takes_labels(fn) -> bool:
-    """Whether ``fn`` (a module's ``forward`` or a method) accepts ``labels``."""
+_ROUTED = ("labels", "dropout_rng")
+
+
+def _accepted(fn) -> frozenset:
+    """Which of ``labels`` and ``dropout_rng`` ``fn`` (a module's ``forward``
+    or a method) accepts."""
     target = fn.forward if isinstance(fn, nn.Module) else fn
-    return "labels" in inspect.signature(target).parameters
+    return frozenset(_ROUTED) & frozenset(inspect.signature(target).parameters)
 
 
-def _call_net(fn, takes_labels: bool, x: torch.Tensor,
-              labels: Optional[torch.Tensor]) -> torch.Tensor:
-    """``fn(x)``, with ``labels`` when given and ``fn`` takes them."""
-    if labels is not None and takes_labels:
-        return fn(x, labels=labels)
-    return fn(x)
+def _call_net(fn, accepted: frozenset, x: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``fn(x)``, with each of ``kwargs`` that is given and ``fn`` accepts."""
+    return fn(x, **{k: v for k, v in kwargs.items() if v is not None and k in accepted})
 
 
 class VAENet(nn.Module):
@@ -63,9 +66,10 @@ class VAENet(nn.Module):
         self.encoder = encoder
         self.decoder = decoder
         self.prior = prior
-        # which nets take labels is fixed here, not looked up on every call
-        self._encode_labels = _takes_labels(self._encode_net)
-        self._decode_labels = _takes_labels(self._decode_net)
+        # which nets take labels and a dropout generator is fixed here, not
+        # looked up on every call
+        self._encode_accepts = _accepted(self._encode_net)
+        self._decode_accepts = _accepted(self._decode_net)
 
     @property
     def _encode_net(self):
@@ -85,15 +89,18 @@ class VAENet(nn.Module):
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None, expand: int = 1,
                step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False,
-               labels: Optional[torch.Tensor] = None):
+               labels: Optional[torch.Tensor] = None,
+               dropout_rng: Optional[torch.Generator] = None):
         """z, or (z, per-sample prior loss, artifacts) with ``return_artifacts``.
         The batch (and ``labels``) is replicated ``expand``× before the draw."""
-        return self.reparametrize(self.features(x, labels), generator, noise, expand, step,
-                                  return_artifacts, labels)
+        return self.reparametrize(self.features(x, labels, dropout_rng), generator, noise,
+                                  expand, step, return_artifacts, labels)
 
-    def features(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                 dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """The encoder's output, before the prior."""
-        return _call_net(self._encode_net, self._encode_labels, x, labels)
+        return _call_net(self._encode_net, self._encode_accepts, x, labels=labels,
+                         dropout_rng=dropout_rng)
 
     def reparametrize(self, enc: torch.Tensor, generator: Optional[torch.Generator] = None,
                       noise: Optional[torch.Tensor] = None, expand: int = 1,
@@ -111,9 +118,9 @@ class VAENet(nn.Module):
         return (z, loss, artifacts) if return_artifacts else z
 
     def decode(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None,
-               expand: int = 1) -> torch.Tensor:
-        return _call_net(self._decode_net, self._decode_labels, z,
-                         replicate_batch(labels, expand))
+               expand: int = 1, dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return _call_net(self._decode_net, self._decode_accepts, z,
+                         labels=replicate_batch(labels, expand), dropout_rng=dropout_rng)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None, expand: int = 1,
@@ -163,9 +170,13 @@ class VAE(VisionModel):
 
     # ------------------------------------------------------------ training
 
-    def batch_preprocess(self, batch, train: bool = True) -> Dict[str, torch.Tensor]:
+    def batch_preprocess(self, batch, train: bool = True,
+                         generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """(samples, labels) → {'samples', 'target', 'kwargs'}; ``kwargs``
-        holds the labels of a conditional model."""
+        holds the labels of a conditional model. ``generator`` is the train
+        step's preprocessing draw (the JAX step's ``k_pre``), which only the
+        ProgressiveTransform curriculum uses; it is not ported yet, so nothing
+        draws from it here."""
         samples, labels = batch[0], batch[1]
         kwargs = {"labels": labels} if self.conditional else {}
         return {"samples": samples, "target": samples, "kwargs": kwargs}
@@ -179,12 +190,16 @@ class VAE(VisionModel):
 
     def loss_fn(self, pbatch: Dict[str, torch.Tensor], step: Union[int, torch.Tensor] = 0,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None,
+                dropout_rng: Optional[torch.Generator] = None):
         """nELBO in train mode (batch statistics, running statistics
-        updated), as the JAX ``loss_fn`` applies the net with ``train=True``.
+        updated, dropout active), as the JAX ``loss_fn`` applies the net with
+        ``train=True``.
 
         :param noise: ε for the (expanded) batch; drawn from ``generator``
             when None
+        :param dropout_rng: the dropout draws of the nets that take one (the
+            JAX ``rngs["dropout"]``); a net with dropout raises without it
         :return: (loss, logs, outputs)
         """
         samples, target = pbatch["samples"], pbatch["target"]
@@ -192,8 +207,9 @@ class VAE(VisionModel):
         self.net.train()
         kwargs = pbatch.get("kwargs", {})
         z, ploss, partifacts = self.net.encode(samples, generator, noise, self.expansion,
-                                               step, return_artifacts=True, **kwargs)
-        recon = self.net.decode(z, expand=self.expansion, **kwargs)
+                                               step, return_artifacts=True,
+                                               dropout_rng=dropout_rng, **kwargs)
+        recon = self.net.decode(z, expand=self.expansion, dropout_rng=dropout_rng, **kwargs)
         recon_mean = mean_replicated_batch(recon, self.expansion)
         p_loss = self.prior_loss(ploss, partifacts) / math.prod(samples.shape[1:])
         r_loss = self.recon_loss(recon_mean, target)

@@ -6,6 +6,11 @@ the other by path. The flax layers the ViT is built from (``Dense``,
 ``LayerNorm``, ``Embed``, ``MultiHeadDotProductAttention``) keep flax's
 parameter names and shapes as well (a Dense kernel is [in, out]), and
 :func:`mha_attention_fn` routes their attention as the JAX package's does.
+
+Every dropout site, :class:`Dropout` and the attention weights' multiplier
+alike, draws its keep mask through :func:`dropout_keep` from a generator the
+caller hands down; train mode with a rate above 0 and no generator raises,
+and nothing draws from torch's global generator.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ __all__ = [
     "Dense",
     "LayerNorm",
     "Embed",
+    "dropout_keep",
+    "Dropout",
     "MultiHeadDotProductAttention",
     "mha_attention_fn",
     "dot_product_attention",
@@ -280,6 +287,41 @@ class _HeadProjection(nn.Module):
         return y.unflatten(-1, k.shape[1:])
 
 
+def dropout_keep(shape, keep_prob: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The keep mask of one dropout site: a boolean tensor of ``shape``, True
+    with probability ``keep_prob``, drawn from ``generator`` (on ``device``).
+    The counterpart of ``jax.random.bernoulli`` at flax's dropout sites.
+
+    :raises ValueError: without a generator
+    """
+    if generator is None:
+        raise ValueError("dropout in train mode needs a generator (dropout_rng)")
+    return torch.rand(tuple(shape), generator=generator, device=device) < keep_prob
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode (``module.training``) with rate r
+    > 0, ``where(keep, x / (1 − r), 0)`` in x's dtype (1 − r rounded to it
+    first, as JAX rounds a Python scalar) with an elementwise keep mask drawn
+    from ``generator``; the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep_prob = 1.0 - self.rate
+        keep = dropout_keep(x.shape, keep_prob, generator, x.device)
+        scaled = x / torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+        return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dot_product_attention(query, key, value, bias=None, mask=None,
                           broadcast_dropout: bool = True,
                           dropout_rng: Optional[torch.Generator] = None,
@@ -307,8 +349,9 @@ def dot_product_attention(query, key, value, bias=None, mask=None,
     if not deterministic and dropout_rate > 0.0:
         keep_prob = 1.0 - dropout_rate
         shape = (1, 1, *weights.shape[-2:]) if broadcast_dropout else weights.shape
-        keep = torch.rand(shape, generator=dropout_rng, device=weights.device) < keep_prob
-        weights = weights * (keep.to(dtype) / keep_prob)
+        keep = dropout_keep(shape, keep_prob, dropout_rng, weights.device)
+        weights = weights * (keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype,
+                                                           device=weights.device))
     return torch.einsum("bhqk,bkhd->bqhd", weights, value.to(dtype))
 
 
@@ -321,14 +364,15 @@ def mha_attention_fn(query, key, value, bias=None, mask=None,
     """Attention of ``MultiHeadDotProductAttention`` (counterpart of
     ``mha_attention_fn``, ``ot_vae_tpu/networks/nets_utils.py:611``).
 
-    Routed to the BTHD kernel (row 7, :func:`fused_attention_bthd`) when
-    the call has no bias, its mask is absent or the layer's causal hint with
-    Tq = Tk, key and value share a shape, and dropout is off or broadcast
-    with a generator (:func:`fused_attention_bthd_dropout`, the [Tq, Tk]
-    keep mask drawn here as the plain path draws it). The kernel takes every
-    T and head dim: the JAX package's T ≥ 512 threshold and 128-lane windows
-    were the TPU's, so its packed and BHTC fallbacks are never reached.
-    Everything else takes :func:`dot_product_attention`.
+    Routed to the BTHD kernels (rows 7 and 8, :func:`fused_attention_bthd`)
+    when the call has no bias, its mask is absent or the layer's causal hint
+    with Tq = Tk, key and value share a shape, and dropout is off or
+    broadcast (:func:`fused_attention_bthd_dropout`, the [Tq, Tk] keep mask
+    drawn here as the plain path draws it). The kernels take every T and
+    head dim: the JAX package's T ≥ 512 threshold and 128-lane windows were
+    the TPU's, so its packed and BHTC fallbacks are never reached. Everything
+    else takes :func:`dot_product_attention`. Dropout in train mode needs
+    ``dropout_rng``: without it either route raises ``ValueError``.
 
     :param query: [B, Tq, H, d]; key, value: [B, Tk, H, d]
     :return: [B, Tq, H, d]
@@ -340,15 +384,16 @@ def mha_attention_fn(query, key, value, bias=None, mask=None,
     if (bias is None and (mask is None or causal)
             and key.shape == value.shape and key.shape[0] == b
             and tuple(key.shape[2:]) == (h, d)
-            and (not dropout_active or (broadcast_dropout and dropout_rng is not None))):
+            and (not dropout_active or broadcast_dropout)):
         dtype = dtype or query.dtype
         qf, kf, vf = (x.to(dtype).reshape(x.shape[0], x.shape[1], h * d)
                       for x in (query, key, value))
         scale = 1.0 / math.sqrt(d)
         if dropout_active:
             keep_prob = 1.0 - dropout_rate
-            keep = torch.rand((t, tk), generator=dropout_rng, device=query.device) < keep_prob
-            mult = keep.to(dtype) / keep_prob
+            keep = dropout_keep((t, tk), keep_prob, dropout_rng, query.device)
+            # keep_prob in the compute dtype first, as JAX rounds the scalar
+            mult = keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype, device=query.device)
             out = fused_attention_bthd_dropout(qf, kf, vf, mult, h, scale, causal=causal)
         else:
             out = fused_attention_bthd(qf, kf, vf, h, scale, causal=causal)

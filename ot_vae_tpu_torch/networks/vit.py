@@ -9,11 +9,16 @@ Images are NHWC; ``out_size`` is (H, W, C) with ``embed_to_patch``, else
 (``TransformerLayer_0/MultiHeadDotProductAttention_0/query/kernel``, ...),
 so ``convert.py`` carries variables across by path. Every attention call
 goes through :func:`~ot_vae_tpu_torch.networks.nets_utils.mha_attention_fn`:
-the BTHD kernel (row 7) on a CUDA tensor.
+the BTHD kernels (rows 7 and 8) on a CUDA tensor.
+
+Train mode (``module.training``) applies dropout where flax does: after the
+positional embedding's LayerNorm (``emb_dropout``), and in each block on the
+attention weights, after the attention, after the MLP's ReLU and after its
+second Dense (``dropout``), each drawn from the generator that
+``ViT.forward`` takes as ``dropout_rng``, in flax's order.
 
 Not ported yet: ``time_dependant`` and the ``decode=True`` KV-cache path
-and ``AutoRegressive`` (slice 7: AutoDiffusion and DAD), and train-mode
-dropout (the ViT training slice, 6b).
+and ``AutoRegressive`` (slice 7: AutoDiffusion and DAD).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from torch import nn
 
 from ot_vae_tpu_torch.networks.nets_utils import (
     Dense,
+    Dropout,
     Embed,
     LayerNorm,
     MultiHeadDotProductAttention,
@@ -33,7 +39,6 @@ from ot_vae_tpu_torch.networks.nets_utils import (
 
 __all__ = ["PositionalEmbedding", "TransformerLayer", "ViT", "AutoRegressive"]
 
-_TRAINING = "ViT training (dropout in train mode) arrives with the ViT training slice (6b)"
 _SLICE_7 = "arrives with slice 7 (AutoDiffusion and DAD)"
 
 
@@ -41,40 +46,39 @@ def pair(t):
     return tuple(t) if isinstance(t, (tuple, list)) else (t, t)
 
 
-def _check_dropout(module: nn.Module, rate: float):
-    if module.training and rate > 0.0:
-        raise NotImplementedError(_TRAINING)
-
-
 class PositionalEmbedding(nn.Module):
-    """Learned positional embedding, then LayerNorm (dropout in train mode
-    is the training slice's)."""
+    """Learned positional embedding, LayerNorm, then dropout in train mode."""
 
     def __init__(self, max_length: int, d_model: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.d_model, self.dropout = d_model, dropout
+        self.d_model = d_model
         self.Embed_0 = Embed(max_length, d_model, dtype)
         self.LayerNorm_0 = LayerNorm(d_model, dtype)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if x.shape[-1] != self.d_model:
             raise ValueError("feature dim of `x` must equal d_model")
-        _check_dropout(self, self.dropout)
         pos = self.Embed_0(torch.arange(x.shape[-2], device=x.device))
-        return self.LayerNorm_0(x + pos)
+        return self.dropout(self.LayerNorm_0(x + pos), dropout_rng)
 
 
 class TransformerLayer(nn.Module):
     """Post-LN block: self-attention (+ optional cross-attention on
     ``memory``, Tq ≠ Tk) + ReLU MLP, each added to its input and normalised
-    (torch ``nn.TransformerEncoderLayer``/``DecoderLayer`` semantics)."""
+    (torch ``nn.TransformerEncoderLayer``/``DecoderLayer`` semantics). In
+    train mode dropout draws from ``dropout_rng`` in flax's order: attention
+    weights, attention output, [cross-attention weights and output], ReLU
+    output, MLP output."""
 
     def __init__(self, dim: int, heads: int, mlp_dim: int, dropout: float = 0.0,
                  cross: bool = False, causal: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dropout, self.cross = dropout, cross
+        self.cross = cross
+        self.dropout = Dropout(dropout)
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
             dim, heads, dtype, dropout, causal_hint=causal)
         self.LayerNorm_0 = LayerNorm(dim, dtype)
@@ -87,24 +91,29 @@ class TransformerLayer(nn.Module):
         setattr(self, f"LayerNorm_{2 if cross else 1}", LayerNorm(dim, dtype))
 
     def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _check_dropout(self, self.dropout)
-        x = self.LayerNorm_0(x + self.MultiHeadDotProductAttention_0(x, mask=mask))
+                mask: Optional[torch.Tensor] = None,
+                dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        drop = functools.partial(self.dropout, generator=dropout_rng)
+        h = self.MultiHeadDotProductAttention_0(x, mask=mask, dropout_rng=dropout_rng)
+        x = self.LayerNorm_0(x + drop(h))
         if self.cross:
             if memory is None:
                 raise ValueError("cross-attention layer requires `memory`")
-            x = self.LayerNorm_1(x + self.MultiHeadDotProductAttention_1(x, memory))
-        h = self.Dense_1(F.relu(self.Dense_0(x)))
+            h = self.MultiHeadDotProductAttention_1(x, memory, dropout_rng=dropout_rng)
+            x = self.LayerNorm_1(x + drop(h))
+        h = self.Dense_1(drop(F.relu(self.Dense_0(x))))
         final = self.LayerNorm_2 if self.cross else self.LayerNorm_1
-        return final(x + h)
+        return final(x + drop(h))
 
 
 class ViT(nn.Module):
     """Generalized ViT with input, embed and class token streams.
 
     Arguments as the JAX ``ViT``; ``head_dim`` wins over ``heads`` when set.
-    Forward: ``vit(x, labels=None)`` on NHWC images (``patch_to_embed``) or
-    [B, tokens, dim] embeddings.
+    Forward: ``vit(x, labels=None, dropout_rng=None)`` on NHWC images
+    (``patch_to_embed``) or [B, tokens, dim] embeddings; in train mode with a
+    dropout rate above 0 ``dropout_rng`` (a ``torch.Generator`` on x's
+    device) is required.
     """
 
     def __init__(self, image_size: Union[int, Tuple[int, int]], dim: int,
@@ -211,7 +220,8 @@ class ViT(nn.Module):
     # -------------------------------------------------- forward
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
-                decode: bool = False) -> torch.Tensor:
+                decode: bool = False,
+                dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if decode:
             raise NotImplementedError(f"the KV-cached decode path {_SLICE_7}")
         p = self._plan
@@ -229,20 +239,21 @@ class ViT(nn.Module):
             streams.append(self.class_token(labels)[:, None, :])
         # the streams meet in their promoted dtype, as jnp.concatenate does
         dtype = functools.reduce(torch.promote_types, [s.dtype for s in streams])
-        x = self.PositionalEmbedding_0(torch.cat([s.to(dtype) for s in streams], dim=1))
+        x = self.PositionalEmbedding_0(torch.cat([s.to(dtype) for s in streams], dim=1),
+                                       dropout_rng)
 
         layers = self._layers
         if self.preprocess_depth is None:
             for layer in layers:
-                x = layer(x)
+                x = layer(x, dropout_rng=dropout_rng)
             out = x[:, self._out_idx]
         else:
             memory = x[:, self._cross_idx]
             for layer in layers[:self.preprocess_depth]:
-                memory = layer(memory)
+                memory = layer(memory, dropout_rng=dropout_rng)
             out = x[:, self._out_idx]
             for layer in layers[self.preprocess_depth:]:
-                out = layer(out, memory=memory)
+                out = layer(out, memory=memory, dropout_rng=dropout_rng)
 
         if self.embed_to_patch:  # b (h w) (p1 p2 c) -> b (h p1) (w p2) c
             out = self.unpatch_proj(out[:, -p["num_patches"]:])

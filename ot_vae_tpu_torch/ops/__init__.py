@@ -1,8 +1,12 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions."""
 from ot_vae_tpu_torch.ops.attention import (
     attention_bhtc,
+    attention_bhtc_backward,
+    attention_bhtc_backward_reference,
     attention_bhtc_reference,
     attention_bthd,
+    attention_bthd_backward,
+    attention_bthd_backward_reference,
     attention_bthd_reference,
     attention_packed,
     attention_packed_backward,
@@ -23,7 +27,9 @@ from ot_vae_tpu_torch.ops.w2 import sinkhorn_log
 __all__ = ["attention_packed", "attention_packed_reference", "attention_packed_backward",
            "attention_packed_backward_reference", "fused_attention_packed",
            "attention_bthd", "attention_bthd_reference", "attention_bhtc",
-           "attention_bhtc_reference", "fused_attention_bthd",
+           "attention_bhtc_reference", "attention_bthd_backward",
+           "attention_bthd_backward_reference", "attention_bhtc_backward",
+           "attention_bhtc_backward_reference", "fused_attention_bthd",
            "fused_attention_bthd_dropout", "fused_attention",
            "sinkhorn_log_auto", "sinkhorn_log_kernel", "sinkhorn_log_kernel_reference",
            "sinkhorn_log"]

@@ -39,13 +39,22 @@ multiplier [Tq, Tk]; and ``_fwd_kernel`` (row 3, reached through
 its bound is the tensor-core rate (≈0.14 ms); it runs on CUDA-core FMAs far
 above it. The ViT's attention takes row 7 at every shape; row 3 has no
 model path in the port (the TPU reached it only for head dims whose lanes do
-not tile 128). Their backward kernels (rows 8 and 4) arrive with the ViT
-training slice: on a CUDA tensor the backward of these entries raises.
+not tile 128). Their backward kernels (``csrc/attention_bthd_bwd.cu``, one
+source again) replace ``_bwd_kernel_bthd`` (row 8) and ``_bwd_kernel``
+(row 4); at the encoder's layer at the train batch (B=32) the backward is
+1.72e11 FLOP against 268 MB, bound by the tensor-core rate (≈0.17 ms), and
+runs on CUDA-core FMAs as well. :func:`fused_attention_bthd`,
+:func:`fused_attention_bthd_dropout` and :func:`fused_attention` tie each
+forward to its backward in a ``torch.autograd.Function``, saving the
+residuals the JAX package's ``custom_vjp`` saves.
 
 A CPU tensor takes the plain versions (:func:`attention_packed_reference`,
 :func:`attention_packed_backward_reference`, :func:`attention_bthd_reference`,
-:func:`attention_bhtc_reference`); a CUDA tensor launches the kernels or
-raises. There is no fallback between them.
+:func:`attention_bthd_backward_reference`, :func:`attention_bhtc_reference`,
+:func:`attention_bhtc_backward_reference`) through the same autograd
+Functions, so the CPU computes the kernels' function, bf16 rounding
+included; a CUDA tensor launches the kernels or raises. There is no fallback
+between them.
 """
 from __future__ import annotations
 
@@ -58,7 +67,9 @@ import torch
 __all__ = ["attention_packed", "attention_packed_reference",
            "attention_packed_backward", "attention_packed_backward_reference",
            "fused_attention_packed", "attention_bthd", "attention_bthd_reference",
-           "attention_bhtc", "attention_bhtc_reference", "fused_attention_bthd",
+           "attention_bhtc", "attention_bhtc_reference", "attention_bthd_backward",
+           "attention_bthd_backward_reference", "attention_bhtc_backward",
+           "attention_bhtc_backward_reference", "fused_attention_bthd",
            "fused_attention_bthd_dropout", "fused_attention"]
 
 # launches of the forward and backward CUDA kernels in this process; read
@@ -69,8 +80,13 @@ backward_launch_count = 0
 # launches of the BTHD (row 7) and BHTC (row 3) forward kernel entry points
 bthd_launch_count = 0
 bhtc_launch_count = 0
-# dout tensors the autograd Function had to copy into the contiguous
-# [B, T, H·C] layout the backward reads (on any device)
+# launches of their backward kernels (rows 8 and 4)
+bthd_bwd_launch_count = 0
+bhtc_bwd_launch_count = 0
+# launches of rows 7 and 8 that carried a multiplier (dropout in train mode)
+mult_launch_count = 0
+# dout tensors the autograd Functions had to copy into the contiguous layout
+# the backward kernels read (on any device)
 dout_copies = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -304,11 +320,13 @@ def fused_attention_packed(qkv: torch.Tensor, n_heads: int,
 
 
 # --------------------------------------------------------------------------
-# Separate q, k, v: BTHD [B, T, H·d] (row 7) and BHTC [B, H, T, d] (row 3)
+# Separate q, k, v: BTHD [B, T, H·d] (rows 7 and 8) and BHTC [B, H, T, d]
+# (rows 3 and 4)
 # --------------------------------------------------------------------------
 
-_TRAINING_SLICE = ("arrives with the ViT training slice (kernel rows 8 and 4); "
-                   "on a CPU tensor the plain version is differentiable")
+
+def _causal_above(tq: int, tk: int, device) -> torch.Tensor:
+    return torch.ones(tq, tk, dtype=torch.bool, device=device).triu(1)
 
 
 def _attention_heads(q, k, v, scale: float, causal: bool = False, mult=None):
@@ -316,7 +334,7 @@ def _attention_heads(q, k, v, scale: float, causal: bool = False, mult=None):
     ``_fwd_kernel_bthd`` (``attention_pallas.py:676-707``): products on the
     input values with f32 accumulation (operands cast to f32, exact for
     bf16), softmax in f32, the normalised P (times ``mult``) cast to v's
-    dtype before P·V. Differentiable by autograd.
+    dtype before P·V.
 
     :return: out [B, H, Tq, d] in q's dtype, lse [B, H, Tq] f32 (f64 for
         f64 input)
@@ -324,10 +342,8 @@ def _attention_heads(q, k, v, scale: float, causal: bool = False, mult=None):
     acc = torch.promote_types(q.dtype, torch.float32)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if causal:
-        tq, tk = s.shape[-2:]
-        above = torch.ones(tq, tk, dtype=torch.bool, device=s.device).triu(1)
-        s = s.masked_fill(above, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True).detach()
+        s = s.masked_fill(_causal_above(*s.shape[-2:], s.device), float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
     weights = p / denom
@@ -338,9 +354,47 @@ def _attention_heads(q, k, v, scale: float, causal: bool = False, mult=None):
     return out, (m + torch.log(denom)).squeeze(-1)
 
 
+def _attention_heads_backward(q, k, v, out, lse, dout, scale: float,
+                              causal: bool = False, mult=None):
+    """dq, dk, dv of :func:`_attention_heads` on [B, H, T, d] heads, step
+    for step as ``_bwd_kernel_bthd`` (``attention_pallas.py:710-755``):
+
+    P = exp(scale·QKᵀ − lse) (0 above the diagonal when causal); Δ =
+    rowsum(dO∘O) in f32; Pd = P∘mult cast to dO's dtype, dV = Pdᵀ·dO;
+    dP = (dO·Vᵀ)∘mult; dS = P∘(dP − Δ)·scale cast to q's dtype; dQ = dS·K;
+    dK = dSᵀ·Q. Products take f32 operands (exact for bf16) and accumulate
+    in f32 (f64 for f64 input).
+
+    :param lse: [B, H, Tq] the forward's log-sum-exp
+    :return: dq [B, H, Tq, d], dk and dv [B, H, Tk, d] in q's dtype
+    """
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qa, ka, va, o, do = (x.to(acc) for x in (q, k, v, out, dout))
+    s = torch.matmul(qa, ka.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(_causal_above(*s.shape[-2:], s.device), float("-inf"))
+    p = torch.exp(s - lse.to(acc).unsqueeze(-1))
+    m = None if mult is None else mult.to(acc)
+    pd = p if m is None else p * m
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(pd.to(dout.dtype).to(acc).transpose(-1, -2), do)
+    dp = torch.matmul(do, va.transpose(-1, -2))
+    if m is not None:
+        dp = dp * m
+    ds = (p * (dp - delta) * scale).to(q.dtype).to(acc)
+    dq = torch.matmul(ds, ka)
+    dk = torch.matmul(ds.transpose(-1, -2), qa)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, t, width = x.shape
     return x.view(b, t, n_heads, width // n_heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
 
 
 def _check_bthd(q, k, v, n_heads: int, scale, causal: bool, mult):
@@ -371,10 +425,23 @@ def attention_bthd_reference(q, k, v, n_heads: int, scale: float, causal: bool =
     :return: out [B, Tq, H·d] in q's dtype, lse [B, H, Tq] f32
     """
     scale = _check_bthd(q, k, v, n_heads, scale, causal, mult)
-    b, tq, width = q.shape
     out, lse = _attention_heads(_split_heads(q, n_heads), _split_heads(k, n_heads),
                                 _split_heads(v, n_heads), scale, causal, mult)
-    return out.transpose(1, 2).reshape(b, tq, width), lse
+    return _merge_heads(out), lse
+
+
+def attention_bthd_backward_reference(q, k, v, out, lse, dout, n_heads: int, scale: float,
+                                      causal: bool = False, mult: torch.Tensor = None):
+    """Plain PyTorch version of the BTHD backward kernel (row 8).
+
+    :param out, dout: [B, Tq, H·d] the forward's output and its gradient
+    :param lse: [B, H, Tq] the forward's log-sum-exp
+    :return: dq [B, Tq, H·d], dk and dv [B, Tk, H·d] in q's dtype
+    """
+    scale = _check_bthd(q, k, v, n_heads, scale, causal, mult)
+    grads = _attention_heads_backward(*(_split_heads(x, n_heads) for x in (q, k, v, out)),
+                                      lse, _split_heads(dout, n_heads), scale, causal, mult)
+    return tuple(_merge_heads(g) for g in grads)
 
 
 def attention_bhtc_reference(q, k, v, scale: float):
@@ -387,6 +454,17 @@ def attention_bhtc_reference(q, k, v, scale: float):
     b, h, t, _ = q.shape
     out, lse = _attention_heads(q, k, v, scale)
     return out, lse.reshape(b * h, t)
+
+
+def attention_bhtc_backward_reference(q, k, v, out, lse, dout, scale: float):
+    """Plain PyTorch version of the BHTC backward kernel (row 4), as
+    ``_bwd_kernel`` (``attention_pallas.py:130-163``).
+
+    :param q, k, v, out, dout: [B, H, T, d]; lse: [B·H, T]
+    :return: dq, dk, dv [B, H, T, d] in q's dtype
+    """
+    b, h, t, _ = q.shape
+    return _attention_heads_backward(q, k, v, out, lse.reshape(b, h, t), dout, scale)
 
 
 def _uses_kernel(x: torch.Tensor) -> bool:
@@ -406,10 +484,16 @@ def _check_same(x: torch.Tensor, like: torch.Tensor, ch: int, what: str):
         raise ValueError(f"{what}: the attention kernel needs 16-byte aligned tensors")
 
 
-def _call(symbol: str, argtypes, args, device):
+def _check_lse(lse: torch.Tensor, shape, like: torch.Tensor):
+    if (tuple(lse.shape) != tuple(shape) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != like.device):
+        raise ValueError(f"lse must be a contiguous f32 {tuple(shape)} on q's device")
+
+
+def _call(library: str, symbol: str, argtypes, args, device):
     from ot_vae_tpu_torch.ops._build import load_library
 
-    fn = getattr(load_library("attention_bthd"), symbol)
+    fn = getattr(load_library(library), symbol)
     fn.argtypes = argtypes + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
@@ -419,7 +503,7 @@ def _call(symbol: str, argtypes, args, device):
 
 
 def _launch_bthd(q, k, v, n_heads: int, scale: float, causal: bool, mult):
-    global bthd_launch_count
+    global bthd_launch_count, mult_launch_count
     b, tq, width = q.shape
     tk, ch = k.shape[1], width // n_heads
     for x, what in ((q, "q"), (k, "k"), (v, "v"), (mult, "mult")):
@@ -428,14 +512,45 @@ def _launch_bthd(q, k, v, n_heads: int, scale: float, causal: bool, mult):
     _check_grid(b, n_heads)
     out = torch.empty_like(q)
     lse = torch.empty((b, n_heads, tq), dtype=torch.float32, device=q.device)
-    _call("attention_bthd_fwd",
+    _call("attention_bthd", "attention_bthd_fwd",
           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2,
           [q.data_ptr(), k.data_ptr(), v.data_ptr(),
            None if mult is None else mult.data_ptr(), out.data_ptr(), lse.data_ptr(),
            b, tq, tk, n_heads, ch, float(scale), int(causal), _DTYPE_CODES[q.dtype]],
           q.device)
     bthd_launch_count += 1
+    if mult is not None:
+        mult_launch_count += 1
     return out, lse
+
+
+def _launch_bthd_backward(q, k, v, out, lse, dout, n_heads: int, scale: float, causal: bool,
+                          mult):
+    global bthd_bwd_launch_count, mult_launch_count
+    b, tq, width = q.shape
+    tk, ch = k.shape[1], width // n_heads
+    for x, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"), (dout, "dout"),
+                    (mult, "mult")):
+        if x is not None:
+            _check_same(x, q, ch, what)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"q's {tuple(q.shape)}")
+    _check_lse(lse, (b, n_heads, tq), q)
+    _check_grid(b, n_heads)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, n_heads, tq), dtype=torch.float32, device=q.device)
+    _call("attention_bthd_bwd", "attention_bthd_bwd",
+          [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2,
+          [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           None if mult is None else mult.data_ptr(), out.data_ptr(), lse.data_ptr(),
+           dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+           b, tq, tk, n_heads, ch, float(scale), int(causal), _DTYPE_CODES[q.dtype]],
+          q.device)
+    bthd_bwd_launch_count += 1
+    if mult is not None:
+        mult_launch_count += 1
+    return dq, dk, dv
 
 
 def _launch_bhtc(q, k, v, scale: float):
@@ -446,12 +561,32 @@ def _launch_bhtc(q, k, v, scale: float):
     _check_grid(b, h)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    _call("attention_bhtc_fwd",
+    _call("attention_bthd", "attention_bhtc_fwd",
           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int],
           [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
            b, h, t, ch, float(scale), _DTYPE_CODES[q.dtype]], q.device)
     bhtc_launch_count += 1
     return out, lse
+
+
+def _launch_bhtc_backward(q, k, v, out, lse, dout, scale: float):
+    global bhtc_bwd_launch_count
+    b, h, t, ch = q.shape
+    for x, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"), (dout, "dout")):
+        _check_same(x, q, ch, what)
+        if x.shape != q.shape:
+            raise ValueError(f"{what} {tuple(x.shape)} must be q's {tuple(q.shape)}")
+    _check_lse(lse, (b * h, t), q)
+    _check_grid(b, h)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    _call("attention_bthd_bwd", "attention_bhtc_bwd",
+          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int],
+          [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+           dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+           b, h, t, ch, float(scale), _DTYPE_CODES[q.dtype]], q.device)
+    bhtc_bwd_launch_count += 1
+    return dq, dk, dv
 
 
 def attention_bthd(q, k, v, n_heads: int, scale: float = None, causal: bool = False,
@@ -467,6 +602,18 @@ def attention_bthd(q, k, v, n_heads: int, scale: float = None, causal: bool = Fa
     if _uses_kernel(q):
         return _launch_bthd(q, k, v, n_heads, scale, causal, mult)
     return attention_bthd_reference(q, k, v, n_heads, scale, causal, mult)
+
+
+def attention_bthd_backward(q, k, v, out, lse, dout, n_heads: int, scale: float = None,
+                            causal: bool = False, mult: torch.Tensor = None):
+    """dq, dk, dv of :func:`attention_bthd` from its residuals and the
+    output's gradient ``dout``: the row-8 kernel on a CUDA tensor, its plain
+    version on a CPU tensor. ``mult`` gets no gradient."""
+    scale = _check_bthd(q, k, v, n_heads, scale, causal, mult)
+    if _uses_kernel(q):
+        return _launch_bthd_backward(q, k, v, out, lse, dout, n_heads, scale, causal, mult)
+    return attention_bthd_backward_reference(q, k, v, out, lse, dout, n_heads, scale,
+                                             causal, mult)
 
 
 def _check_bhtc(q, k, v, scale):
@@ -488,30 +635,62 @@ def attention_bhtc(q, k, v, scale: float = None):
     return attention_bhtc_reference(q, k, v, scale)
 
 
+def attention_bhtc_backward(q, k, v, out, lse, dout, scale: float = None):
+    """dq, dk, dv [B, H, T, d] of :func:`attention_bhtc`: the row-4 kernel on
+    a CUDA tensor, its plain version on a CPU tensor."""
+    scale = _check_bhtc(q, k, v, scale)
+    if _uses_kernel(q):
+        return _launch_bhtc_backward(q, k, v, out, lse, dout, scale)
+    return attention_bhtc_backward_reference(q, k, v, out, lse, dout, scale)
+
+
+def _contiguous_dout(dout: torch.Tensor) -> torch.Tensor:
+    """dout in the contiguous layout the backward kernels read; a copy is
+    counted in ``dout_copies``."""
+    global dout_copies
+    if dout.is_contiguous():
+        return dout
+    dout_copies += 1
+    return dout.contiguous()
+
+
 class _FusedAttentionBTHD(torch.autograd.Function):
-    """Row 7's kernel forward; its backward (row 8) is not ported yet."""
+    """Row 7 forward, row 8 backward; residuals (q, k, v, mult, out, lse) as
+    in ``_fused_bthd_drop_fwd`` (``attention_pallas.py:860-864``). The
+    multiplier gets no gradient (the JAX package returns zeros for it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mult, n_heads, scale, causal):
-        return attention_bthd(q, k, v, n_heads, scale, causal, mult)[0]
+        out, lse = attention_bthd(q, k, v, n_heads, scale, causal, mult)
+        ctx.save_for_backward(q, k, v, mult, out, lse)
+        ctx.n_heads, ctx.scale, ctx.causal = n_heads, scale, causal
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError("backward of the BTHD attention kernel "
-                                  + _TRAINING_SLICE)
+        q, k, v, mult, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bthd_backward(q, k, v, out, lse, _contiguous_dout(dout),
+                                             ctx.n_heads, ctx.scale, ctx.causal, mult)
+        return dq, dk, dv, None, None, None, None
 
 
 class _FusedAttentionBHTC(torch.autograd.Function):
-    """Row 3's kernel forward; its backward (row 4) is not ported yet."""
+    """Row 3 forward, row 4 backward; residuals (q, k, v, out, lse) as in
+    ``_fused_fwd`` (``attention_pallas.py:198-200``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        return attention_bhtc(q, k, v, scale)[0]
+        out, lse = attention_bhtc(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError("backward of the BHTC attention kernel "
-                                  + _TRAINING_SLICE)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bhtc_backward(q, k, v, out, lse, _contiguous_dout(dout),
+                                             ctx.scale)
+        return dq, dk, dv, None
 
 
 def fused_attention_bthd(q, k, v, n_heads: int, scale: float = None,
@@ -520,13 +699,10 @@ def fused_attention_bthd(q, k, v, n_heads: int, scale: float = None,
     ``fused_attention_bthd``, ``attention_pallas.py:895``); Tq ≠ Tk is
     allowed, ``causal`` masks keys after the query (Tq = Tk).
 
-    :return: out [B, Tq, H·d] in q's dtype. A CPU tensor runs the plain
-        version, differentiable by autograd; a CUDA tensor the kernel, whose
-        backward raises until the ViT training slice
+    :return: out [B, Tq, H·d] in q's dtype; its gradient runs the row-8
+        kernel on a CUDA tensor and the plain backward on a CPU tensor
     """
     scale = _check_bthd(q, k, v, n_heads, scale, causal, None)
-    if not _uses_kernel(q):
-        return attention_bthd_reference(q, k, v, n_heads, scale, causal)[0]
     return _FusedAttentionBTHD.apply(q, k, v, None, n_heads, float(scale), causal)
 
 
@@ -537,17 +713,12 @@ def fused_attention_bthd_dropout(q, k, v, mult: torch.Tensor, n_heads: int,
     batch element and head; counterpart of ``fused_attention_bthd_dropout``,
     ``attention_pallas.py:920``). The multiplier gets no gradient."""
     scale = _check_bthd(q, k, v, n_heads, scale, causal, mult)
-    if not _uses_kernel(q):
-        return attention_bthd_reference(q, k, v, n_heads, scale, causal, mult.detach())[0]
-    return _FusedAttentionBTHD.apply(q, k, v, mult, n_heads, float(scale), causal)
+    return _FusedAttentionBTHD.apply(q, k, v, mult.detach(), n_heads, float(scale), causal)
 
 
 def fused_attention(q, k, v, scale: float = None) -> torch.Tensor:
     """softmax(scale·QKᵀ)V on [B, H, T, d] (counterpart of
-    ``fused_attention``, ``attention_pallas.py:992``): the row-3 kernel on a
-    CUDA tensor, whose backward raises until the ViT training slice; the
-    plain version, differentiable by autograd, on a CPU tensor."""
+    ``fused_attention``, ``attention_pallas.py:992``): rows 3 and 4 on a
+    CUDA tensor, their plain versions on a CPU tensor."""
     scale = _check_bhtc(q, k, v, scale)
-    if not _uses_kernel(q):
-        return attention_bhtc_reference(q, k, v, scale)[0]
     return _FusedAttentionBHTC.apply(q, k, v, float(scale))

@@ -3,7 +3,8 @@
 
 SGD mode: the tables ``mu`` and ``log_std`` [num_classes, prod(dim)] are
 parameters trained with the model. The EMA mode (``ema_decay``, the
-``prior_stats`` collection) arrives with the ViT training slice.
+``prior_stats`` collection) is on neither ViT path: its per-class sums are
+``psum``'d across devices, so it arrives with multi-GPU training (slice 9).
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ class ConditionalGaussianPrior(GaussianPrior):
         super().__init__(loss_coeff, annealing_steps, reparam_dim=reparam_dim)
         if ema_decay is not None and ema_decay > 0:
             raise NotImplementedError(
-                "the EMA-fitted ConditionalGaussianPrior (ema_decay) arrives with the "
-                "ViT training slice")
+                "the EMA-fitted ConditionalGaussianPrior (ema_decay) arrives with "
+                "multi-GPU training (slice 9)")
         self.dim = tuple(dim)
         self.num_classes = num_classes
         flat = math.prod(self.dim)

@@ -8,8 +8,10 @@ gradients (the batch norms in train mode), optional global-norm clipping,
 Adam, the EMA update and the step counter.
 
 Random draws come from ``torch.Generator`` objects seeded from
-``(seed, salt, epoch, batch_idx)``; they are not the JAX trainer's draws,
-so :meth:`Trainer.train_step` also takes ε as a tensor.
+``(seed, salt, epoch, batch_idx)``: a train step takes one each for ε,
+dropout and the batch's preprocessing, the counterpart of the JAX step's
+three-way key split. They are not the JAX trainer's draws, so
+:meth:`Trainer.train_step` also takes ε as a tensor.
 """
 from __future__ import annotations
 
@@ -130,20 +132,30 @@ class Trainer:
 
     # ------------------------------------------------------------ train
 
+    def step_generators(self, epoch: int, batch_idx: int):
+        """The train step's generators of ε, dropout and preprocessing (the
+        JAX step's ``k_prior``, ``k_drop`` and ``k_pre``)."""
+        return tuple(self.generator(salt, epoch, batch_idx) for salt in (1, 4, 5))
+
     def train_step(self, model, batch, generator: Optional[torch.Generator] = None,
-                   noise: Optional[torch.Tensor] = None):
+                   noise: Optional[torch.Tensor] = None,
+                   dropout_rng: Optional[torch.Generator] = None,
+                   preprocess_rng: Optional[torch.Generator] = None):
         """One optimizer step on ``batch`` = (images, labels) as numpy arrays.
 
         :param noise: ε of the prior's draw; drawn from ``generator`` when None
+        :param dropout_rng: the dropout draws (a model with dropout raises
+            without it)
+        :param preprocess_rng: the batch preprocessing's draws
         :return: (logs, outputs) as tensors on the device; the gradients stay
             in the parameters' ``.grad`` until the next step
         """
         state = self.state
-        pbatch = model.batch_preprocess(self._put(batch), train=True)
+        pbatch = model.batch_preprocess(self._put(batch), train=True, generator=preprocess_rng)
         if noise is not None:
             noise = torch.as_tensor(noise, device=self.device)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, logs, outputs = model.loss_fn(pbatch, state.step, generator, noise)
+        loss, logs, outputs = model.loss_fn(pbatch, state.step, generator, noise, dropout_rng)
         loss.backward()
         if model.gradient_clip_val:
             clip_by_global_norm([p.grad for p in state.net.parameters()],
@@ -181,7 +193,9 @@ class Trainer:
         for batch_idx, batch in enumerate(datamodule.train_batches(epoch)):
             if self.limit_batches is not None and batch_idx >= self.limit_batches:
                 break
-            logs, outputs = self.train_step(model, batch, self.generator(1, epoch, batch_idx))
+            prior_rng, dropout_rng, preprocess_rng = self.step_generators(epoch, batch_idx)
+            logs, outputs = self.train_step(model, batch, prior_rng, dropout_rng=dropout_rng,
+                                            preprocess_rng=preprocess_rng)
             n += 1
             if batch_idx % self.log_every_n_steps == 0:
                 self.logger.log_metrics({k: float(v) for k, v in logs.items()},

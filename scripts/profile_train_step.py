@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where a train step's device time goes: the FFHQ128 CNN VAE at full width.
+"""Where a train step's device time goes: the FFHQ128 CNN VAE or the FFHQ128
+ViT VAE at full width.
 
-    python scripts/profile_train_step.py [--seed 0]
+    python scripts/profile_train_step.py [--seed 0] [--model cnn|vit]
 
 Builds the model as chip_smoke.py does (bf16 activations, f32 parameters and
-Adam state, seeded random weights, batch 128, lr 1e-4), takes three warm-up
+Adam state, seeded random weights; the CNN at batch 128 and lr 1e-4, the ViT
+of configs/vae/vit_ffhq128.yaml at batch 32 and lr 1e-3), takes three warm-up
 steps on the seeded synthetic FFHQ128 fallback, times five train steps, then
 traces five more with ``torch.profiler`` on the card. Prints the wall time of
 a step with and without the profiler (host clock, synchronised), the device
@@ -28,9 +30,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # first match wins, on the lower-cased kernel name
 CATEGORIES = [
-    ("attention (port kernels)", ("attention_packed",)),
+    ("attention (port kernels)", ("attention_",)),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad", "winograd")),
-    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
     ("optimizer", ("adam", "multi_tensor", "foreach")),
     ("reduction", ("reduce",)),
     ("copy / fill", ("copy", "memcpy", "memset", "fill", "cat")),
@@ -49,24 +51,31 @@ def category(name: str) -> str:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and data")
+    parser.add_argument("--model", choices=("cnn", "vit"), default="cnn",
+                        help="the FFHQ128 CNN VAE or the FFHQ128 ViT VAE")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_step: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import TRAIN_BATCH, TRAIN_LR, ffhq128_vae
+    import chip_smoke
     from ot_vae_tpu_torch.data import FFHQ128
     from ot_vae_tpu_torch.ops import _build
     from ot_vae_tpu_torch.trainer import Trainer
 
     _build.build_all()
-    warmup, steps, batch_size = 3, 5, TRAIN_BATCH
+    if args.model == "cnn":
+        build, batch_size, lr = chip_smoke.ffhq128_vae, chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_LR
+    else:
+        build, batch_size, lr = (lambda dtype, seed: chip_smoke.ffhq_vit_vae(seed, dtype),
+                                 chip_smoke.VIT_TRAIN_BATCH, chip_smoke.VIT_TRAIN_LR)
+    warmup, steps = 3, 5
     dm = FFHQ128(root=("/nonexistent/train", "/nonexistent/test"),
                  synthetic_train=batch_size * (warmup + 2 * steps), synthetic_test=10,
                  train_batch_size=batch_size, seed=args.seed)
     dm.setup()
-    model = ffhq128_vae(torch.bfloat16, args.seed)
-    model.learning_rate = TRAIN_LR
+    model = build(torch.bfloat16, args.seed)
+    model.learning_rate = lr
     trainer = Trainer(seed=args.seed)
     trainer.setup_fit(model, dm)
     batches = list(dm.train_batches(0))
@@ -76,7 +85,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         start = time.perf_counter()
         for i in range(first, first + count):
-            trainer.train_step(model, batches[i], trainer.generator(1, 0, i))
+            prior_rng, dropout_rng, preprocess_rng = trainer.step_generators(0, i)
+            trainer.train_step(model, batches[i], prior_rng, dropout_rng=dropout_rng,
+                               preprocess_rng=preprocess_rng)
         torch.cuda.synchronize()
         return (time.perf_counter() - start) * 1e3 / count
 
@@ -100,7 +111,7 @@ def main(argv=None) -> int:
     by_cat = defaultdict(float)
     for name, (ms, _) in per_kernel.items():
         by_cat[category(name)] += ms
-    print(f"train step, batch {batch_size}, bf16: wall {plain_ms:.3f} ms "
+    print(f"{args.model} train step, batch {batch_size}, bf16: wall {plain_ms:.3f} ms "
           f"({batch_size / plain_ms * 1e3:.1f} img/s), {wall_ms:.3f} ms with the profiler on; "
           f"kernels {device_ms:.3f} ms, idle {max(0.0, 1 - device_ms / plain_ms):.3f} of the "
           f"wall ({max(0.0, 1 - device_ms / wall_ms):.3f} traced)", flush=True)
@@ -114,7 +125,7 @@ def main(argv=None) -> int:
     for name, (ms, n) in top:
         print(f"  {ms:9.3f} ({n:5.1f})  [{category(name)}] {name[:140]}")
     print(json.dumps({
-        "batch": batch_size, "wall_ms": plain_ms, "traced_wall_ms": wall_ms,
+        "model": args.model, "batch": batch_size, "wall_ms": plain_ms, "traced_wall_ms": wall_ms,
         "device_ms": device_ms,
         "categories_ms": dict(by_cat),
         "top": [{"name": name[:200], "ms": ms, "launches": n} for name, (ms, n) in top],

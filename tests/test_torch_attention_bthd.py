@@ -1,11 +1,12 @@
 """The port's BTHD (row 7) and BHTC (row 3) attention against the JAX
 package's Pallas kernels in interpret mode, on the CPU.
 
-The CUDA kernel (``ot_vae_tpu_torch/ops/csrc/attention_bthd.cu``) runs only
-on the card: chip_smoke.py holds it against the plain versions tested here.
-On the CPU the entry points run the plain version, differentiable by
-autograd; on a CUDA tensor their backward raises until the ViT training
-slice, which a mocked launch shows here.
+The CUDA kernels (``ot_vae_tpu_torch/ops/csrc/attention_bthd.cu`` and
+``attention_bthd_bwd.cu``) run only on the card: chip_smoke.py holds them
+against the plain versions tested here. On the CPU the entry points run the
+plain forward and backward through the same autograd Functions; on a CUDA
+tensor their backward launches the backward kernel (rows 8 and 4), which a
+mocked launch shows here.
 """
 import jax
 import jax.numpy as jnp
@@ -115,10 +116,10 @@ def test_bhtc_reference_matches_pallas(b, h, t, d):
 
 @pytest.mark.parametrize("causal,mult", [(False, False), (True, True)], ids=["plain", "causal_mult"])
 def test_cpu_entry_backward_matches_pallas_backward(causal, mult):
-    """On the CPU the entries' gradient runs by autograd through the plain
-    version; it agrees with the gradient of the JAX entry, whose backward is
-    the row-8 Pallas kernel in interpret mode (f32, products summed in
-    another order: 1e-5 of the largest gradient)."""
+    """On the CPU the entries' gradient runs the plain row-8 backward; it
+    agrees with the gradient of the JAX entry, whose backward is the row-8
+    Pallas kernel in interpret mode (f32, products summed in another order:
+    1e-5 of the largest gradient)."""
     b, t, h, d = 2, 16, 2, 8
     q, k, v, m = _inputs(b, t, t, h, d, mult, seed=11)
     g = np.random.default_rng(12).standard_normal((b, t, h * d)).astype(np.float32)
@@ -159,25 +160,63 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 
 @pytest.fixture
 def mocked_card(monkeypatch):
-    """Every tensor counts as a CUDA tensor; the "launches" compute the plain
-    forward, so only the entries' own backward is left to run."""
+    """Every tensor counts as a CUDA tensor; the forward "launches" compute
+    the plain forward and the backward "launches" the plain backward, each
+    recorded, while the plain backward versions themselves raise if an entry
+    calls them directly."""
+    launched = []
+    plain = {"bthd": attention.attention_bthd_backward_reference,
+             "bhtc": attention.attention_bhtc_backward_reference}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain backward")
+
+    def bthd_bwd(q, k, v, out, lse, dout, h, s, c, m):
+        launched.append("bthd_bwd")
+        return plain["bthd"](q, k, v, out, lse, dout, h, s, c, m)
+
+    def bhtc_bwd(q, k, v, out, lse, dout, s):
+        launched.append("bhtc_bwd")
+        return plain["bhtc"](q, k, v, out, lse, dout, s)
+
     monkeypatch.setattr(attention, "_uses_kernel", lambda x: True)
     monkeypatch.setattr(attention, "_launch_bthd",
                         lambda q, k, v, h, s, c, m: attention_bthd_reference(q, k, v, h, s, c, m))
     monkeypatch.setattr(attention, "_launch_bhtc",
                         lambda q, k, v, s: attention_bhtc_reference(q, k, v, s))
+    monkeypatch.setattr(attention, "_launch_bthd_backward", bthd_bwd)
+    monkeypatch.setattr(attention, "_launch_bhtc_backward", bhtc_bwd)
+    monkeypatch.setattr(attention, "attention_bthd_backward_reference", refuse)
+    monkeypatch.setattr(attention, "attention_bhtc_backward_reference", refuse)
+    return launched
 
 
 @pytest.mark.parametrize("entry", ["bthd", "bthd_dropout", "bhtc"])
-def test_cuda_backward_raises_not_a_fallback(mocked_card, entry):
+def test_cuda_backward_raises_not_a_fallback(mocked_card, monkeypatch, entry):
+    """On a CUDA tensor each entry's backward launches its backward kernel
+    (row 8, or row 4 for ``fused_attention``) once and never runs a plain
+    version; when the launch fails, the error reaches the caller."""
     q, k, v, m = _inputs(1, 8, 8, 2, 4, True, seed=6)
-    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
-    if entry == "bthd":
-        out = attention.fused_attention_bthd(tq, tk, tv, 2)
-    elif entry == "bthd_dropout":
-        out = attention.fused_attention_bthd_dropout(tq, tk, tv, _t(m), 2)
-    else:
-        out = attention.fused_attention(*(x.view(1, 8, 2, 4).transpose(1, 2) for x in
-                                          (tq, tk, tv)))
-    with pytest.raises(NotImplementedError, match="ViT training slice"):
+    kind = "bhtc" if entry == "bhtc" else "bthd"
+
+    def run():
+        tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+        if entry == "bthd":
+            out = attention.fused_attention_bthd(tq, tk, tv, 2)
+        elif entry == "bthd_dropout":
+            out = attention.fused_attention_bthd_dropout(tq, tk, tv, _t(m), 2)
+        else:
+            out = attention.fused_attention(*(x.view(1, 8, 2, 4).transpose(1, 2) for x in
+                                              (tq, tk, tv)))
         out.sum().backward()
+        return tq.grad
+
+    assert run() is not None
+    assert mocked_card == [f"{kind}_bwd"]
+
+    def fail(*args):
+        raise RuntimeError("launch failed: cudaError 1")
+
+    monkeypatch.setattr(attention, f"_launch_{kind}_backward", fail)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        run()

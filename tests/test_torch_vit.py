@@ -224,8 +224,12 @@ def test_vit_later_slices_raise():
     vit = ViT(8, 16, patch_size=4, heads=2, depth=1)
     with pytest.raises(NotImplementedError, match="slice 7"):
         vit.eval()(torch.zeros(1, 8, 8, 3), decode=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        vit.train()(torch.zeros(1, 8, 8, 3))  # dropout 0.1 in train mode
+    # dropout 0.1 in train mode draws from the generator it is handed, and
+    # raises without one (never from torch's global generator)
+    with pytest.raises(ValueError, match="generator"):
+        vit.train()(torch.zeros(1, 8, 8, 3))
+    out = vit.train()(torch.zeros(1, 8, 8, 3), dropout_rng=torch.Generator().manual_seed(0))
+    assert out.shape == (1, 1, 16) and bool(torch.isfinite(out).all())
 
 
 # ------------------------------------------------------------ priors
@@ -269,7 +273,7 @@ def test_conditional_gaussian_prior_matches_jax():
                       method=jp.sample)
     mean, scale = port.p(torch.from_numpy(labels))
     _close((mean + scale * torch.from_numpy(eps)).detach(), want_s)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         ConditionalGaussianPrior((1, 6), 4, ema_decay=0.9)
 
 
