@@ -103,7 +103,26 @@ toolkit. Phases, each printing one line:
 21. Trainer.fit of the FFHQ128 ViT VAE (bf16 activations, f32 parameters,
    batch 32, lr 1e-3) for 20 steps on the seeded FFHQ128 fallback and one
    validation: finite, falling losses, 16 row-7 and 16 row-8 launches per
-   step; prints steady img/s, peak memory and the dout copies per step.
+   step; prints steady img/s, peak memory and the dout copies per step;
+22. fused attention block kernels: rows 5 and 6 against their plain
+   versions at the FFHQ128 model's six blocks (forward at B=64, backward at
+   the train batch of 128), the MNIST32 attention shapes, a ragged shape
+   with C, H·ch and C_out all different and one head of 128 dims, bf16 and
+   f32; row 6 twice on the same inputs, bit for bit; their times in bf16
+   at the decoder's 32² and the encoder's 16² block beside the bound, the
+   plain versions and two yardsticks (the port's unfused block, and
+   matmul + SDPA + matmul);
+23. serve the FFHQ128 CNN VAE with fused_block=True (bf16, buckets 1, 8,
+   64): 6 row-5 launches per reconstruct, 3 per encode, decode and sample,
+   no launch of any other kernel; img/s per endpoint at bucket 64 beside
+   phase 4's;
+24. the fused model in f32: served fused and unfused on the card and fused
+   on the CPU, within PATH_TOL of each other; then its first two train
+   steps card vs CPU vs f64, as phase 7;
+25. Trainer.fit of the fused FFHQ128 CNN VAE as phase 8 (20 steps, batch
+   128, lr 1e-4, one validation): finite, falling losses, exactly 6 row-5
+   and 6 row-6 launches per step and none of any other kernel; steady img/s,
+   peak memory and dout copies beside phase 8's.
 
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.
@@ -315,6 +334,24 @@ CIFAR_TRAIN_IMAGES = 12000
 # kernels, and no cuDNN algorithm choice on the ViT path
 CIFAR_CKPT_TOL = 1e-5
 
+# rows 5 and 6 (the fused attention block) checks as (T, H, ch, C, C_out,
+# batch of the forward check, batch of the backward check): the FFHQ128
+# model's six blocks (C = C_out = H·64) at the serving and the train batch,
+# the MNIST32 shapes with C = C_out = H·ch, a ragged T with C, H·ch and C_out
+# all different, and one head of 128 dims. The weights arrive as the model
+# hands them (transposed views of the convs' [out, in] weights), but for the
+# ragged shapes, which take the JAX package's contiguous [in, out] layout.
+# Both kernels take the gates of rows 1 and 2: bf16 max_rel_err
+# (BF16_REL_TOL, with phase 10's floor) over out, dx, each of the q, k and v
+# column blocks of dW_qkv, and dW_out; f32 max abs error over max(1,
+# max|ref|) (OUT_TOL for out, BWD_TOL for the gradients); lse to LSE_TOL.
+# Row 6 runs twice on the same inputs and must repeat bit for bit.
+BLOCK_SHAPES = ([(t, h, HEAD_DIM, h * HEAD_DIM, h * HEAD_DIM, BATCH, TRAIN_BATCH)
+                 for _, t, h in ATTN_SHAPES]
+                + [(t, h, c, h * c, h * c, SMALL_ATTN_BATCH, SMALL_ATTN_BATCH)
+                   for t, h, c in SMALL_ATTN_SHAPES]
+                + [(37, 3, 8, 24, 40, 16, 16), (100, 1, 128, 128, 128, 16, 16)])
+
 class CheckFailed(Exception):
     pass
 
@@ -427,10 +464,11 @@ def phase_kernel(attention):
     return worst, timings
 
 
-def ffhq128_vae(dtype, seed: int):
+def ffhq128_vae(dtype, seed: int, fused_block: bool = False):
     """The FFHQ128 CNN VAE of configs/vae/ffhq128.yaml (prior loss
     coefficient 0.1, PSNR metric, Adam at the model's default 1e-3),
-    weights from ``seed``."""
+    weights from ``seed``; ``fused_block`` runs its six attention blocks
+    through the fused block (rows 5 and 6) with the same parameters."""
     from ot_vae_tpu_torch.data import ffhq128_transforms
     from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
     from ot_vae_tpu_torch.models import VAE
@@ -440,9 +478,9 @@ def ffhq128_vae(dtype, seed: int):
     torch.manual_seed(seed)
     model = VAE(
         CNN(3, 512, 128, 4, capacity=64, down_sample=True, residual="add",
-            attn_head_dim=64, dtype=dtype),
+            attn_head_dim=64, dtype=dtype, fused_block=fused_block),
         CNN(256, 3, 4, 128, capacity=64, up_sample=True, residual="add",
-            attn_head_dim=64, dtype=dtype),
+            attn_head_dim=64, dtype=dtype, fused_block=fused_block),
         GaussianPrior(loss_coeff=0.1), metrics=MetricCollection({"psnr": PSNR()}))
     model.inference_preprocess, model.inference_postprocess = ffhq128_transforms()
     return model
@@ -476,11 +514,25 @@ def calibrate_batch_norm(model, seed: int, n: int = 16):
             hook.remove()
 
 
-def phase_serve(attention, seed: int):
-    """The slice's main path: the engine's four endpoints at full width."""
+def _attention_counts(attention, sinkhorn):
+    """Every kernel counter, by row: 1 and 2 (packed), 5 and 6 (fused block),
+    7, 3, 8 and 4 (BTHD/BHTC), 9 (Sinkhorn)."""
+    return {1: attention.launch_count, 2: attention.backward_launch_count,
+            5: attention.block_launch_count, 6: attention.block_bwd_launch_count,
+            7: attention.bthd_launch_count, 3: attention.bhtc_launch_count,
+            8: attention.bthd_bwd_launch_count, 4: attention.bhtc_bwd_launch_count,
+            9: sinkhorn.launch_count}
+
+
+def phase_serve(attention, sinkhorn, seed: int, fused: bool = False):
+    """The engine's four endpoints at full width: the unfused model through
+    row 1, or with ``fused`` the fused-block model through row 5 (and no
+    launch of any other kernel)."""
     from ot_vae_tpu_torch.serving import InferenceEngine
 
-    model = ffhq128_vae(torch.bfloat16, seed).to("cuda", memory_format=torch.channels_last)
+    row = 5 if fused else 1
+    model = ffhq128_vae(torch.bfloat16, seed, fused).to("cuda",
+                                                         memory_format=torch.channels_last)
     calibrate_batch_norm(model, seed)
     engine = InferenceEngine(model, batch_sizes=(1, 8, 64))
     rng = np.random.default_rng(seed)
@@ -488,19 +540,20 @@ def phase_serve(attention, seed: int):
               for n in (1, 5, 8, 64)}
     expected = {"reconstruct": 6, "encode": 3, "decode": 3, "sample": 3}
 
-    attention.launch_count = 0
+    attention.launch_count = attention.block_launch_count = 0
+    before = _attention_counts(attention, sinkhorn)
     seen = 0
 
     def request(kind, fn, shape):
         nonlocal seen
         out = fn()
         torch.cuda.synchronize()
-        launched = attention.launch_count - seen
-        seen = attention.launch_count
+        count = _attention_counts(attention, sinkhorn)[row]
+        launched, seen = count - seen, count
         check(out.shape == shape, f"{kind}: shape {out.shape} != {shape}")
         check(bool(np.isfinite(out).all()), f"{kind}: non-finite output")
         check(launched == expected[kind],
-              f"{kind}: kernel launched {launched} times, expected {expected[kind]}")
+              f"{kind}: row {row} launched {launched} times, expected {expected[kind]}")
         return out
 
     for n in (1, 5, 64):
@@ -508,28 +561,24 @@ def phase_serve(attention, seed: int):
     z = request("encode", lambda: engine.encode(images[8]), (8, 4, 4, 256))
     request("decode", lambda: engine.decode(z), (8, 128, 128, 3))
     request("sample", lambda: engine.sample(8), (8, 128, 128, 3))
-    launches = attention.launch_count
-    check(launches == 27, f"main path launched the kernel {launches} times, expected 27")
-    print(f"serve FFHQ128 bf16 full width: reconstruct 1/5/64, encode 8, decode 8, "
-          f"sample 8 ok; attention kernel launches {launches}", flush=True)
+    after = _attention_counts(attention, sinkhorn)
+    launches = after[row]
+    check(launches == 27, f"main path launched row {row} {launches} times, expected 27")
+    others = {r: after[r] - before[r] for r in after if r != row}
+    check(not any(others.values()), f"the serving path launched other kernels: {others}")
+    name = "fused block" if fused else "attention kernel"
+    print(f"serve FFHQ128{' fused block' if fused else ''} bf16 full width: reconstruct "
+          f"1/5/64, encode 8, decode 8, sample 8 ok; {name} (row {row}) launches {launches}; "
+          f"other kernels {others}", flush=True)
 
     z64 = engine.encode(images[64])
-    calls = {"reconstruct": lambda: engine.reconstruct(images[64]),
-             "encode": lambda: engine.encode(images[64]),
-             "decode": lambda: engine.decode(z64),
-             "sample": lambda: engine.sample(64)}
-    rates = {}
-    for kind, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        reps = 5
-        start = time.perf_counter()
-        for _ in range(reps):
-            fn()  # returns host numpy: each call ends synchronised
-        rates[kind] = 64 * reps / (time.perf_counter() - start)
-    print("serve img/s at bucket 64 (bf16): " + ", ".join(
+    rates = _serve_rates({"reconstruct": lambda: engine.reconstruct(images[64]),
+                          "encode": lambda: engine.encode(images[64]),
+                          "decode": lambda: engine.decode(z64),
+                          "sample": lambda: engine.sample(64)}, 64)
+    print(f"serve{' fused block' if fused else ''} img/s at bucket 64 (bf16): " + ", ".join(
         f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
-    return launches, engine
+    return launches, engine, rates, others
 
 
 def phase_whole_path(bf16_engine, seed: int):
@@ -647,22 +696,27 @@ class _Recorder:
         self.rows.append((step, dict(metrics)))
 
 
-def phase_train(attention, seed: int, workdir: Path):
-    """The slice's main path: Trainer.fit at full width, batch 128."""
+def phase_train(attention, sinkhorn, seed: int, workdir: Path, fused: bool = False):
+    """Trainer.fit at full width, batch 128: the unfused model through rows
+    1 and 2, or with ``fused`` the fused-block model through rows 5 and 6
+    (and no launch of any other kernel)."""
     from ot_vae_tpu_torch.data import FFHQ128
     from ot_vae_tpu_torch.trainer import Callback, ModelCheckpointCallback, Trainer
 
+    rows = (5, 6) if fused else (1, 2)
+
     class StepProbe(Callback):
-        """Synchronises after each step and records the time and the
-        kernel counters."""
+        """Synchronises after each step and records the time, the path's
+        forward and backward counters and the dout copies."""
 
         def __init__(self):
             self.rows = []
 
         def _record(self):
             torch.cuda.synchronize()
-            self.rows.append((time.perf_counter(), attention.launch_count,
-                              attention.backward_launch_count, attention.dout_copies))
+            counts = _attention_counts(attention, sinkhorn)
+            self.rows.append((time.perf_counter(), counts[rows[0]], counts[rows[1]],
+                              attention.dout_copies))
 
         def on_train_epoch_start(self, trainer, model):
             self._record()
@@ -679,7 +733,7 @@ def phase_train(attention, seed: int, workdir: Path):
     start = time.perf_counter()
     dm.setup()
     data_s = time.perf_counter() - start
-    model = ffhq128_vae(torch.bfloat16, seed)
+    model = ffhq128_vae(torch.bfloat16, seed, fused)
     model.learning_rate = TRAIN_LR
     probe, logger = StepProbe(), _Recorder()
     ckpt = ModelCheckpointCallback(dirpath=str(workdir / "checkpoints"))
@@ -687,46 +741,54 @@ def phase_train(attention, seed: int, workdir: Path):
                       callbacks=[probe, ckpt], logger=logger, seed=seed)
     torch.cuda.reset_peak_memory_stats()
     attention.launch_count = attention.backward_launch_count = attention.dout_copies = 0
+    attention.block_launch_count = attention.block_bwd_launch_count = 0
+    before = _attention_counts(attention, sinkhorn)
     trainer.fit(model, dm)
     torch.cuda.synchronize()
-    launches = {"forward": attention.launch_count, "backward": attention.backward_launch_count}
+    after = _attention_counts(attention, sinkhorn)
+    launches = {"forward": after[rows[0]], "backward": after[rows[1]]}
+    others = {r: after[r] - before[r] for r in after if r not in rows}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
+    name = "FFHQ128 fused block" if fused else "FFHQ128"
     losses = [m["train/loss/total"] for _, m in logger.rows if "train/loss/total" in m]
-    print("train losses per step (total, recon, prior): " + ", ".join(
+    print(f"train {name} losses per step (total, recon, prior): " + ", ".join(
         f"({m['train/loss/total']:.4g}, {m['train/loss/recon']:.4g}, "
         f"{m['train/loss/prior']:.4g})" for _, m in logger.rows if "train/loss/total" in m),
         flush=True)
     psnr = trainer.logged_metrics.get("val/metrics/psnr", float("nan"))
-    check(len(losses) == TRAIN_STEPS, f"train: {len(losses)} losses logged")
-    check(all(math.isfinite(v) for v in losses), f"train: non-finite loss in {losses}")
-    check(losses[-1] < losses[0], f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
-    check(math.isfinite(psnr), f"train: validation PSNR {psnr}")
+    check(len(losses) == TRAIN_STEPS, f"train {name}: {len(losses)} losses logged")
+    check(all(math.isfinite(v) for v in losses), f"train {name}: non-finite loss in {losses}")
+    check(losses[-1] < losses[0],
+          f"train {name}: loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(math.isfinite(psnr), f"train {name}: validation PSNR {psnr}")
+    check(not any(others.values()), f"train {name}: other kernels launched {others}")
     steps = [(b[1] - a[1], b[2] - a[2], b[3] - a[3])
              for a, b in zip(probe.rows[:-1], probe.rows[1:])]
-    check(len(steps) == TRAIN_STEPS, f"train: {len(steps)} steps probed")
+    check(len(steps) == TRAIN_STEPS, f"train {name}: {len(steps)} steps probed")
     bad = [i for i, (f, b, _) in enumerate(steps) if (f, b) != (6, 6)]
-    check(not bad, f"train: steps {bad} launched (forward, backward) "
+    check(not bad, f"train {name}: steps {bad} launched (row {rows[0]}, row {rows[1]}) "
                    f"{[steps[i][:2] for i in bad]}, expected (6, 6)")
     # a validation batch runs the forward (6 blocks); the eval step's
     # latents come from the same encoder pass
     val_batches = min(TRAIN_STEPS, dm.steps_per_epoch("val"))
     check(launches == {"forward": 6 * TRAIN_STEPS + 6 * val_batches,
                        "backward": 6 * TRAIN_STEPS},
-          f"train: kernel launches {launches}")
-    check(ckpt.best_path is not None, "train: no checkpoint saved")
+          f"train {name}: kernel launches {launches}")
+    check(ckpt.best_path is not None, f"train {name}: no checkpoint saved")
     times = [r[0] for r in probe.rows]
     steady = 3  # steps 4..20: from the end of step 3 to the end of step 20
     img_s = (TRAIN_STEPS - steady) * TRAIN_BATCH / (times[-1] - times[steady])
     copies = sum(s[2] for s in steps) / TRAIN_STEPS
-    print(f"train FFHQ128 bf16 full width, batch {TRAIN_BATCH}, lr {TRAIN_LR:g}: "
+    print(f"train {name} bf16 full width, batch {TRAIN_BATCH}, lr {TRAIN_LR:g}: "
           f"{TRAIN_STEPS} steps, "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, val PSNR {psnr:.3f} dB; "
-          f"kernel launches per step 6 forward + 6 backward (run: {launches}); "
-          f"steady train img/s (steps 4-{TRAIN_STEPS}, synchronised) {img_s:.1f}; "
-          f"peak memory {peak_gib:.2f} GiB; dout copies per step {copies:.1f}; "
+          f"launches per step 6 row {rows[0]} + 6 row {rows[1]} (run: {launches}; other "
+          f"kernels {others}); steady train img/s (steps 4-{TRAIN_STEPS}, synchronised) "
+          f"{img_s:.1f}; peak memory {peak_gib:.2f} GiB; dout copies per step {copies:.1f}; "
           f"synthetic data {data_s:.1f} s", flush=True)
-    return model, ckpt.best_path, launches
+    stats = {"img_s": img_s, "peak_gib": peak_gib, "copies": copies, "others": others}
+    return model, ckpt.best_path, launches, stats
 
 
 def phase_serve_checkpoint(model, path: str, seed: int):
@@ -789,9 +851,10 @@ def _check_train_runs(name, runs):
                             f"{ratio:.3f}x tol")
 
 
-def phase_train_card_vs_cpu(seed: int):
+def phase_train_card_vs_cpu(seed: int, fused: bool = False):
     """Two train steps at full width, batch 4, from the same weights and ε:
-    f32 on the card, f32 and f64 on the CPU."""
+    f32 on the card, f32 and f64 on the CPU (with ``fused``, the fused-block
+    model: rows 5 and 6 on the card, their plain versions on the CPU)."""
     from ot_vae_tpu_torch.data import ArrayDataset, BaseDatamodule
     from ot_vae_tpu_torch.trainer import Trainer
 
@@ -805,7 +868,7 @@ def phase_train_card_vs_cpu(seed: int):
     runs = {}
     for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
                                 ("cpu64", "cpu", torch.float64)):
-        model = ffhq128_vae(dtype, seed + 3)
+        model = ffhq128_vae(dtype, seed + 3, fused)
         model.load_state_dict(state, strict=True)
         model.to(dtype)
         trainer = Trainer(device=device, seed=seed)
@@ -818,7 +881,7 @@ def phase_train_card_vs_cpu(seed: int):
                 grads = {k: p.grad.detach().double().cpu()
                          for k, p in model.net.named_parameters()}
         runs[name] = (losses, grads)
-    _check_train_runs("FFHQ128 CNN", runs)
+    _check_train_runs("FFHQ128 CNN fused block" if fused else "FFHQ128 CNN", runs)
 
 
 def phase_small_heads(attention):
@@ -1827,6 +1890,219 @@ def phase_train_ffhq_vit(attention, seed: int, workdir: Path):
 
 
 
+def _block_inputs(gen, b, t, h, ch, c, c_out, dtype, transposed: bool):
+    """x and dout ~ N(0, 1) in ``dtype``; f32 weights at 1/sqrt(fan-in), as
+    [out, in] matrices viewed transposed (the model's layout) or contiguous
+    [in, out] (the JAX package's)."""
+    width = h * ch
+    x = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
+    dout = torch.randn((b, t, c_out), generator=gen, device="cuda").to(dtype)
+    if transposed:
+        wq = (torch.randn((3 * width, c), generator=gen, device="cuda") / math.sqrt(c)).t()
+        wo = (torch.randn((c_out, width), generator=gen, device="cuda")
+              / math.sqrt(width)).t()
+    else:
+        wq = torch.randn((c, 3 * width), generator=gen, device="cuda") / math.sqrt(c)
+        wo = torch.randn((width, c_out), generator=gen, device="cuda") / math.sqrt(width)
+    return x, wq, wo, dout
+
+
+def _block_bound(b, t, h, ch, c, c_out, backward: bool):
+    """(bound ms, bound_by, FLOP, bytes) of row 5 (or row 6) in bf16: the
+    JAX cost estimates' FLOP (attention_pallas.py:577, :624) at the
+    tensor-core rate; each input read once and each output written once."""
+    width = h * ch
+    w_bytes = 4 * (c * 3 * width + width * c_out)
+    if backward:
+        flops = b * (10.0 * t * t * width + 4.0 * t * c * 3 * width + 4.0 * t * width * c_out)
+        n_bytes = 2 * b * t * (2 * c + c_out) + 4 * b * t * h + 2 * w_bytes
+    else:
+        flops = b * (4.0 * t * t * width + 2.0 * t * c * 3 * width + 2.0 * t * width * c_out)
+        n_bytes = 2 * b * t * (c + c_out) + 4 * b * t * h + w_bytes
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations", flops, n_bytes
+
+
+def phase_block(attention):
+    """Rows 5 and 6 against their plain versions at BLOCK_SHAPES, bf16 and
+    f32, row 6 bit for bit on a second run; their times in bf16 at the
+    FFHQ128 decoder's 32² block and the 16² encoder block, beside the bound,
+    the plain versions and two yardsticks: the port's unfused block (two 1×1
+    convs around row 1, or their backward around row 2) and matmul + SDPA +
+    matmul (PyTorch's library calls)."""
+    from ot_vae_tpu_torch.networks.cnn import AttentionBlock
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for i, (t, h, ch, c, c_out, b_fwd, b_bwd) in enumerate(BLOCK_SHAPES):
+            scale = 1.0 / math.sqrt(ch)
+            transposed = i < len(BLOCK_SHAPES) - 2
+            shape = f"T={t} H={h} ch={ch} C={c} C_out={c_out}"
+            x, wq, wo, _ = _block_inputs(gen, b_fwd, t, h, ch, c, c_out, dtype, transposed)
+            out, lse = attention.attention_block(x, wq, wo, h, scale)
+            torch.cuda.synchronize()
+            ref, ref_lse = attention.attention_block_reference(x, wq, wo, h, scale)
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            rel = max_rel_err(out, ref, 1, SMALL_FLOOR)
+            if dtype == torch.bfloat16:
+                gate, ok = f"max_rel_err={rel:.3e} (tol {BF16_REL_TOL:.1e})", rel <= BF16_REL_TOL
+            else:
+                tol = OUT_TOL * max(1.0, ref.float().abs().max().item())
+                gate, ok = f"(tol {tol:.3e}); max_rel_err={rel:.3e}", err <= tol
+            print(f"block check {name} B={b_fwd} {shape}: out max_abs_err={err:.3e} {gate} "
+                  f"lse max_abs_err={lse_err:.3e} (tol {LSE_TOL:.1e})", flush=True)
+            check(math.isfinite(err) and ok, f"block {name} {shape}: abs {err}, rel {rel}")
+            check(math.isfinite(lse_err) and lse_err <= LSE_TOL,
+                  f"block {name} {shape}: lse {lse_err}")
+            if dtype == torch.bfloat16:
+                worst["fwd"] = max(worst["fwd"], err)
+            del x, wq, wo, out, lse, ref, ref_lse
+
+            x, wq, wo, dout = _block_inputs(gen, b_bwd, t, h, ch, c, c_out, dtype, transposed)
+            _, lse = attention.attention_block(x, wq, wo, h, scale)
+            grads = attention.attention_block_backward(x, wq, wo, lse, dout, h, scale)
+            again = attention.attention_block_backward(x, wq, wo, lse, dout, h, scale)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, a) for g, a in zip(grads, again)),
+                  f"block backward {name} {shape}: two runs differ")
+            check(all(g.shape == w.shape and (min(w.shape) == 1 or g.stride() == w.stride())
+                      for g, w in ((grads[1], wq), (grads[2], wo))),
+                  f"block backward {name} {shape}: weight gradients not in the weights' "
+                  f"layout")
+            refs = attention.attention_block_backward_reference(x, wq, wo, lse, dout, h, scale)
+            errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
+            rels = [max_rel_err(g, r, n, SMALL_FLOOR)
+                    for g, r, n in zip(grads, refs, (1, 3, 1))]
+            if dtype == torch.bfloat16:
+                gate = (f"max_rel_err dx {rels[0]:.3e} dW_qkv {rels[1]:.3e} dW_out "
+                        f"{rels[2]:.3e} (tol {BF16_REL_TOL:.1e})")
+                ok = max(rels) <= BF16_REL_TOL
+            else:
+                tols = [BWD_TOL * max(1.0, r.float().abs().max().item()) for r in refs]
+                gate = (f"(tol {', '.join(f'{v:.3e}' for v in tols)}); max_rel_err "
+                        f"{max(rels):.3e}")
+                ok = all(e <= v for e, v in zip(errs, tols))
+            print(f"block backward check {name} B={b_bwd} {shape}: max_abs_err dx "
+                  f"{errs[0]:.3e} dW_qkv {errs[1]:.3e} dW_out {errs[2]:.3e} {gate}; "
+                  f"repeats bit for bit", flush=True)
+            check(all(math.isfinite(e) for e in errs) and ok,
+                  f"block backward {name} {shape}: abs {errs}, rel {rels}")
+            if dtype == torch.bfloat16:
+                worst["bwd"] = max(worst["bwd"], max(errs))
+            del x, wq, wo, dout, lse, grads, again, refs
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtype = torch.bfloat16
+    timings = {}
+    for t, h in ((1024, 2), (256, 4)):
+        ch, c = HEAD_DIM, h * HEAD_DIM
+        side = int(math.isqrt(t))
+        scale = 1.0 / math.sqrt(ch)
+        # the port's unfused block with the same weights: NCHW channels_last
+        block = AttentionBlock(c, h, dtype=dtype).cuda()
+        wq = block.Conv1x1_0.ConvLayer_0.EqualConv_0.Conv_0.weight.view(3 * c, c).t()
+        wo = block.Conv1x1_1.ConvLayer_0.EqualConv_0.Conv_0.weight.view(c, c).t()
+        wq_lib, wo_lib = (w.detach().to(dtype).requires_grad_() for w in (wq, wo))
+
+        def library(x):
+            qkv = torch.matmul(x, wq_lib)
+            q, k, v = qkv.view(x.shape[0], t, 3, h, ch).permute(2, 0, 3, 1, 4)
+            o = sdpa(q, k, v, scale=scale).transpose(1, 2).reshape(x.shape[0], t, c)
+            return torch.matmul(o, wo_lib)
+
+        for kind, b in (("fwd", BATCH), ("bwd", TRAIN_BATCH)):
+            x = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
+            dout = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
+            bound, bound_by, flops, n_bytes = _block_bound(b, t, h, ch, c, c, kind == "bwd")
+            x4 = x.view(b, side, side, c).permute(0, 3, 1, 2).detach().requires_grad_()
+            dout4 = dout.view(b, side, side, c).permute(0, 3, 1, 2)
+            xg = x.detach().requires_grad_()
+            wq_d, wo_d = wq.detach(), wo.detach()
+            if kind == "fwd":
+                with torch.no_grad():
+                    row = {
+                        "ms": time_ms(lambda: attention.attention_block(x, wq_d, wo_d, h, scale),
+                                      flush),
+                        "plain_ms": time_ms(lambda: attention.attention_block_reference(
+                            x, wq_d, wo_d, h, scale), flush, reps=10),
+                        "unfused_ms": time_ms(lambda: block(x4), flush),
+                        "matmul_sdpa_ms": time_ms(lambda: library(x), flush)}
+            else:
+                _, lse = attention.attention_block(x, wq_d, wo_d, h, scale)
+                unfused_out = block(x4)
+                library_out = library(xg)
+                params = list(block.parameters())
+                row = {
+                    "ms": time_ms(lambda: attention.attention_block_backward(
+                        x, wq_d, wo_d, lse, dout, h, scale), flush, reps=10),
+                    "plain_ms": time_ms(lambda: attention.attention_block_backward_reference(
+                        x, wq_d, wo_d, lse, dout, h, scale), flush, reps=5),
+                    "unfused_ms": time_ms(lambda: torch.autograd.grad(
+                        unfused_out, [x4] + params, dout4, retain_graph=True), flush, reps=10),
+                    "matmul_sdpa_ms": time_ms(lambda: torch.autograd.grad(
+                        library_out, (xg, wq_lib, wo_lib), dout, retain_graph=True), flush,
+                        reps=10)}
+                del lse, unfused_out, library_out
+            row.update(bound_ms=bound, bound_by=bound_by, library_ms=None)
+            timings[(kind, t, h)] = row
+            print(f"block {'backward ' if kind == 'bwd' else ''}time bf16 B={b} T={t} H={h} "
+                  f"ch={ch} C={c}: kernel {row['ms']:.4f} ms, bound {bound:.4f} ms "
+                  f"({bound_by}; {flops:.3e} FLOP, {n_bytes / 1e6:.1f} MB), plain "
+                  f"{row['plain_ms']:.4f} ms, library: no single PyTorch call; "
+                  f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+            print(f"block {kind} yardsticks bf16 B={b} T={t} H={h}: the port's unfused block "
+                  f"(1x1 convs around row {1 if kind == 'fwd' else 2}) "
+                  f"{row['unfused_ms']:.4f} ms; matmul + SDPA + matmul "
+                  f"{row['matmul_sdpa_ms']:.4f} ms", flush=True)
+            del x, dout, x4, dout4, xg
+        del block, wq_lib, wo_lib
+    del flush
+    return worst, timings
+
+
+def phase_fused_whole_path(attention, fused_engine, seed: int):
+    """The fused-block model's weights in f32: served fused (6 row-5
+    launches, no row 1) and unfused (6 row-1 launches, no row 5) on the card
+    (TF32 off) and fused on the CPU (the plain rows 5 and 6), all three
+    within PATH_TOL of each other."""
+    from ot_vae_tpu_torch.serving import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = {k: v.cpu() for k, v in fused_engine.model.state_dict().items()}
+    rng = np.random.default_rng(seed + 8)
+    images = rng.uniform(0, 1, (4, 128, 128, 3)).astype(np.float32)
+    noise = rng.standard_normal((4, 4, 4, 256)).astype(np.float32)
+    outs = {}
+    for name, device, fused in (("card fused", "cuda", True), ("card unfused", "cuda", False),
+                                ("cpu fused", "cpu", True)):
+        model = ffhq128_vae(torch.float32, seed, fused)
+        model.load_state_dict(state, strict=True)
+        attention.launch_count = attention.block_launch_count = 0
+        outs[name] = InferenceEngine(model, device=device).reconstruct(images, noise=noise)
+        want = (0, 0) if device == "cpu" else (0, 6) if fused else (6, 0)
+        got = (attention.launch_count, attention.block_launch_count)
+        check(got == want, f"whole path {name}: (row 1, row 5) launched {got}, expected {want}")
+    ref = outs["cpu fused"]
+    tol = PATH_TOL * max(1.0, float(np.abs(ref).max()))
+    errs = {"card fused vs cpu fused": float(np.abs(outs["card fused"] - ref).max()),
+            "card unfused vs cpu fused": float(np.abs(outs["card unfused"] - ref).max()),
+            "card fused vs card unfused": float(np.abs(outs["card fused"]
+                                                       - outs["card unfused"]).max())}
+    print("whole path fused block f32, reconstruct 4: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in errs.items())
+        + f" (tol {tol:.3e}, output range {np.abs(ref).max():.3f})", flush=True)
+    check(all(np.isfinite(o).all() for o in outs.values())
+          and all(v <= tol for v in errs.values()), f"whole path fused block: {errs} > {tol}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -1853,14 +2129,15 @@ def main(argv=None) -> int:
               f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})",
               flush=True)
         worst, timings = phase_kernel(attention)
-        launches, engine = phase_serve(attention, args.seed)
+        launches, engine, serve_rates, _ = phase_serve(attention, sinkhorn, args.seed)
         phase_whole_path(engine, args.seed)
         del engine
         bwd_worst, bwd_timings = phase_backward(attention)
         phase_train_card_vs_cpu(args.seed)
         workdir = ROOT / "build" / "chip_smoke"
         shutil.rmtree(workdir, ignore_errors=True)
-        model, checkpoint, train_launches = phase_train(attention, args.seed, workdir)
+        model, checkpoint, train_launches, train_stats = phase_train(
+            attention, sinkhorn, args.seed, workdir)
         phase_serve_checkpoint(model, checkpoint, args.seed)
         shutil.rmtree(workdir, ignore_errors=True)
         del model
@@ -1879,6 +2156,24 @@ def main(argv=None) -> int:
         cifar_train = phase_train_cifar_vit(attention, args.seed, workdir)
         ffhq_train = phase_train_ffhq_vit(attention, args.seed, workdir)
         shutil.rmtree(workdir, ignore_errors=True)
+        block_worst, block_timings = phase_block(attention)
+        fused_launches, fused_engine, fused_rates, fused_serve_others = phase_serve(
+            attention, sinkhorn, args.seed, fused=True)
+        print("serve img/s at bucket 64 (bf16), fused block vs unfused (phase 4): " + ", ".join(
+            f"{k} {fused_rates[k]:.1f} vs {serve_rates[k]:.1f}" for k in serve_rates),
+            flush=True)
+        phase_fused_whole_path(attention, fused_engine, args.seed)
+        del fused_engine
+        phase_train_card_vs_cpu(args.seed, fused=True)
+        model, _, fused_train, fused_stats = phase_train(attention, sinkhorn, args.seed,
+                                                        workdir, fused=True)
+        del model
+        shutil.rmtree(workdir, ignore_errors=True)
+        print(f"train FFHQ128 bf16 batch {TRAIN_BATCH}, fused block vs unfused (phase 8): "
+              f"steady img/s {fused_stats['img_s']:.1f} vs {train_stats['img_s']:.1f}; peak "
+              f"memory {fused_stats['peak_gib']:.2f} vs {train_stats['peak_gib']:.2f} GiB; "
+              f"dout copies per step {fused_stats['copies']:.1f} vs "
+              f"{train_stats['copies']:.1f}", flush=True)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1974,6 +2269,34 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+        })
+    rows = {"attention_packed_fwd": 1, "attention_packed_bwd": 2, "sinkhorn_log": 9,
+            "attention_bthd_fwd": 7, "attention_bhtc_fwd": 3, "attention_bthd_bwd": 8,
+            "attention_bhtc_bwd": 4}
+    for kernel in kernels:
+        row = rows[kernel["name"]]
+        kernel["launches_by_path"].update(ffhq128_fused_serve=fused_serve_others[row],
+                                          ffhq128_fused_train=fused_stats["others"][row])
+    for kind, source, line, worst_kind, timing, by_path in (
+            ("fwd", "attention_block.cu", 443, "fwd", block_timings[("fwd", 1024, 2)],
+             {"ffhq128_fused_serve": fused_launches,
+              "ffhq128_fused_train": fused_train["forward"]}),
+            ("bwd", "attention_block_bwd.cu", 481, "bwd", block_timings[("bwd", 1024, 2)],
+             {"ffhq128_fused_serve": fused_serve_others[6],
+              "ffhq128_fused_train": fused_train["backward"]})):
+        kernels.append({
+            "name": f"attention_block_{kind}",
+            "route": "cuda",
+            "source": f"ot_vae_tpu_torch/ops/csrc/{source}",
+            "replaces": f"ot_vae_tpu/ops/attention_pallas.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": block_worst[worst_kind],
+            "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

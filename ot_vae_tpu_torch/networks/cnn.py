@@ -6,6 +6,12 @@ memory, so the 1×1 qkv conv's output viewed as [B, T, 3·H·C] is already the
 packed layout the attention kernel reads. Module attribute names follow the
 flax module tree (``ConvBlock_0``, ``ConvLayer_1``, ...), which is what
 ``convert.py`` relies on.
+
+``fused_block=True`` (off by default, as in the JAX package) is the
+counterpart of the JAX package's ``OT_VAE_FUSED_ATTN_BLOCK=1``: every
+attention block with ``groups == 1`` runs its qkv projection, attention and
+output projection as one fused block (rows 5 and 6 on the card), with the
+same parameters.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from ot_vae_tpu_torch.networks.nets_utils import (
     get_activation,
     spatial_attention,
 )
+from ot_vae_tpu_torch.ops.attention import fused_attention_block
 
 __all__ = ["ConvLayer", "Conv1x1", "AttentionBlock", "ConvBlock", "CNN", "AutoEncoder",
            "get_channel_list", "get_block_scaling"]
@@ -86,25 +93,49 @@ class Conv1x1(nn.Module):
 class AttentionBlock(nn.Module):
     """Spatial self-attention: 1×1 qkv → multi-head attention → 1×1 proj.
     The projections stay PyTorch convs; the attention between them is the
-    hand-written kernel on a CUDA tensor."""
+    hand-written kernel on a CUDA tensor.
+
+    With ``fused_block`` (and ``groups == 1``) the qkv conv's normalization
+    runs alone and the two projections and the attention run as one fused
+    block on the convs' effective weights (``fused_attention_block``: rows 5
+    and 6 on a CUDA tensor), as the JAX block does under
+    ``OT_VAE_FUSED_ATTN_BLOCK=1``. The parameters are the same either way.
+    """
 
     def __init__(self, channels: int, heads: int = 1,
                  normalization: Optional[str] = None,
                  equalized_lr: Optional[float] = None, groups: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_block: bool = False):
         super().__init__()
         self.heads = heads
+        self.fused_block = fused_block and groups == 1
         self.Conv1x1_0 = Conv1x1(channels, channels * 3, normalization=normalization,
                                  equalized_lr=equalized_lr, groups=groups, dtype=dtype)
         self.Conv1x1_1 = Conv1x1(channels, channels, equalized_lr=equalized_lr,
                                  groups=groups, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_block:
+            return self._fused(x)
         b, c, h, w = x.shape
         # channels_last NCHW → [B, T, 3·C] is a view, not a copy
         qkv = self.Conv1x1_0(x).permute(0, 2, 3, 1).reshape(b, h * w, 3 * c)
         out = spatial_attention(qkv, self.heads)
         return self.Conv1x1_1(out.view(b, h, w, c).permute(0, 3, 1, 2))
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        layer = self.Conv1x1_0.ConvLayer_0
+        normed = layer.act(layer.Normalization_0(x))
+        # the OIHW [3C, C, 1, 1] and [C, C, 1, 1] effective weights viewed
+        # as the [C, 3C] and [C, C] matrices the block multiplies by: the
+        # transposed views the kernels read through their strides
+        w_qkv = layer.EqualConv_0.effective_params()[0].view(3 * c, c).t()
+        w_out = self.Conv1x1_1.ConvLayer_0.EqualConv_0.effective_params()[0].view(c, c).t()
+        # channels_last NCHW → [B, T, C] is a view, not a copy
+        tokens = normed.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        out = fused_attention_block(tokens, w_qkv, w_out, self.heads)  # scale 1/sqrt(ch)
+        return out.view(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class ConvBlock(nn.Module):
@@ -119,7 +150,7 @@ class ConvBlock(nn.Module):
                  residual: Optional[str] = None,
                  equalized_lr: Optional[float] = None, kernel_size: int = 3,
                  groups: int = 1, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_block: bool = False):
         super().__init__()
         self.residual = residual
         self.n_layers = n_layers
@@ -131,7 +162,7 @@ class ConvBlock(nn.Module):
                 normalization, activation, equalized_lr, kernel_size, groups,
                 use_bias, dtype))
         self.AttentionBlock_0 = (AttentionBlock(
-            embed, n_attn_heads, normalization, equalized_lr, groups, dtype)
+            embed, n_attn_heads, normalization, equalized_lr, groups, dtype, fused_block)
             if n_attn_heads > 0 else None)
         self.Conv1x1_0 = (Conv1x1(
             in_features, embed, down_sample, up_sample, normalization,
@@ -226,7 +257,7 @@ class CNN(nn.Module):
                  equalized_lr: Optional[float] = None, kernel_size: int = 3,
                  groups: int = 1, use_bias: bool = True,
                  attn_head_dim: Optional[int] = None, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_block: bool = False):
         super().__init__()
         if dropout > 0:
             raise NotImplementedError(
@@ -246,7 +277,7 @@ class CNN(nn.Module):
             setattr(self, f"ConvBlock_{bi}", ConvBlock(
                 ic, oc, heads, n_layers, down_sample, up_sample, normalization,
                 activation, residual, equalized_lr, kernel_size, groups,
-                use_bias, dtype))
+                use_bias, dtype, fused_block))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # NHWC → NCHW view, channels_last memory
@@ -276,7 +307,7 @@ class AutoEncoder(nn.Module):
                  activation: Optional[str] = "relu",
                  equalized_lr: Optional[float] = None, dropout: float = 0.0,
                  kernel_size: int = 3, groups: int = 1, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_block: bool = False):
         super().__init__()
         if num_classes or time_embed_dim:
             raise NotImplementedError(
@@ -290,7 +321,7 @@ class AutoEncoder(nn.Module):
                       residual=residual, normalization=normalization,
                       activation=activation, equalized_lr=equalized_lr,
                       kernel_size=kernel_size, groups=groups, use_bias=use_bias,
-                      dropout=dropout, dtype=dtype)
+                      dropout=dropout, dtype=dtype, fused_block=fused_block)
         self.encoder = CNN(in_features, encoded, in_resolution, latent_resolution,
                            intermediate_features, down_sample=down_up_sample, **common)
         self.decoder = CNN(latent_features, in_features, latent_resolution, in_resolution,

@@ -2,9 +2,10 @@
 
 Each ``*.cu`` file becomes one shared library with a plain C interface,
 compiled for ``sm_90a`` into ``build/kernels/`` at the repository root and
-loaded with ``ctypes``. The file name carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. All
-sources are compiled at once, one ``nvcc`` process each.
+loaded with ``ctypes``. The file name carries a hash of the source, of
+every header (``*.cuh``) beside it and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. All sources are compiled
+at once, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU tests import every module, and there
 is no ``nvcc`` on a machine without the CUDA toolkit.
@@ -42,7 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -48,10 +48,29 @@ runs on CUDA-core FMAs as well. :func:`fused_attention_bthd`,
 forward to its backward in a ``torch.autograd.Function``, saving the
 residuals the JAX package's ``custom_vjp`` saves.
 
+The fused attention block (``csrc/attention_block.cu``, row 5) replaces
+``_block_fwd_kernel`` (reached through ``fused_attention_block``): the qkv
+projection x·W_qkv, the packed attention and the output projection attn·W_out
+in one call, as three launches (a tiled projection, row 1's device code, a
+tiled projection) through workspaces. Its backward
+(``csrc/attention_block_bwd.cu``, row 6) replaces ``_block_bwd_kernel``:
+it recomputes qkv and attn (from lse, P rounded as the TPU kernel rounds
+it), runs row 2's device code on (qkv, attn, lse, dAttn = dO·W_outᵀ) and
+the three remaining projections, and sums the weight
+gradients over the batch in a fixed order, with no atomics. At the FFHQ128
+decoder's 32² block (B=64, T=1024, H=2, ch=64, C=128) the forward is
+4.3e10 FLOP against 34 MB and the backward at the train batch (B=128)
+2.1e11 FLOP against about 100 MB: both are bound by the tensor-core rate
+(0.043 and 0.21 ms) and run on CUDA-core FMAs far above it.
+:func:`fused_attention_block` ties them together in a
+``torch.autograd.Function`` saving the JAX package's residuals
+(x, W_qkv, W_out, lse).
+
 A CPU tensor takes the plain versions (:func:`attention_packed_reference`,
 :func:`attention_packed_backward_reference`, :func:`attention_bthd_reference`,
 :func:`attention_bthd_backward_reference`, :func:`attention_bhtc_reference`,
-:func:`attention_bhtc_backward_reference`) through the same autograd
+:func:`attention_bhtc_backward_reference`, :func:`attention_block_reference`,
+:func:`attention_block_backward_reference`) through the same autograd
 Functions, so the CPU computes the kernels' function, bf16 rounding
 included; a CUDA tensor launches the kernels or raises. There is no fallback
 between them.
@@ -70,7 +89,9 @@ __all__ = ["attention_packed", "attention_packed_reference",
            "attention_bhtc", "attention_bhtc_reference", "attention_bthd_backward",
            "attention_bthd_backward_reference", "attention_bhtc_backward",
            "attention_bhtc_backward_reference", "fused_attention_bthd",
-           "fused_attention_bthd_dropout", "fused_attention"]
+           "fused_attention_bthd_dropout", "fused_attention", "attention_block",
+           "attention_block_reference", "attention_block_backward",
+           "attention_block_backward_reference", "fused_attention_block"]
 
 # launches of the forward and backward CUDA kernels in this process; read
 # and reset them as ``attention.launch_count`` / ``backward_launch_count`` to
@@ -85,6 +106,10 @@ bthd_bwd_launch_count = 0
 bhtc_bwd_launch_count = 0
 # launches of rows 7 and 8 that carried a multiplier (dropout in train mode)
 mult_launch_count = 0
+# calls of the fused attention block's forward (row 5) and backward (row 6):
+# one each per call, however many CUDA launches the call makes
+block_launch_count = 0
+block_bwd_launch_count = 0
 # dout tensors the autograd Functions had to copy into the contiguous layout
 # the backward kernels read (on any device)
 dout_copies = 0
@@ -722,3 +747,248 @@ def fused_attention(q, k, v, scale: float = None) -> torch.Tensor:
     CUDA tensor, their plain versions on a CPU tensor."""
     scale = _check_bhtc(q, k, v, scale)
     return _FusedAttentionBHTC.apply(q, k, v, float(scale))
+
+
+# --------------------------------------------------------------------------
+# The fused attention block: qkv projection, packed attention, output
+# projection (rows 5 and 6)
+# --------------------------------------------------------------------------
+
+
+def _check_block(x, w_qkv, w_out, n_heads: int, scale):
+    """The JAX entry's shape asserts (``attention_pallas.py:964-966``);
+    returns the scale, 1/sqrt(head dim) when None."""
+    if x.dim() != 3 or w_qkv.dim() != 2 or w_out.dim() != 2:
+        raise ValueError(f"x must be [B, T, C] and the weights 2-D, got {tuple(x.shape)}, "
+                         f"{tuple(w_qkv.shape)}, {tuple(w_out.shape)}")
+    width = w_qkv.shape[1]
+    if w_qkv.shape[0] != x.shape[2]:
+        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} must be [C, 3·H·ch] for x "
+                         f"{tuple(x.shape)}")
+    ch = _split(width, n_heads)
+    if w_out.shape[0] != width // 3:
+        raise ValueError(f"w_out {tuple(w_out.shape)} must be [H·ch, C_out] = "
+                         f"[{width // 3}, C_out]")
+    return 1.0 / math.sqrt(ch) if scale is None else scale
+
+
+def _block_operands(x, w_qkv, w_out):
+    """The accumulation dtype (f32, f64 for f64 input) and both weights
+    rounded to x's dtype, as ``_block_fwd_kernel`` casts them."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return acc, w_qkv.to(x.dtype).to(acc), w_out.to(x.dtype).to(acc)
+
+
+def attention_block_reference(x, w_qkv, w_out, n_heads: int,
+                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the row-5 kernel, step for step as
+    ``_block_fwd_kernel`` (``attention_pallas.py:443-478``): the weights
+    cast to x's dtype; qkv = x·W_qkv with f32 accumulation, rounded to x's
+    dtype; per head softmax(scale·QKᵀ) with P normalised and rounded to v's
+    dtype before P·V, attn_h rounded to x's dtype
+    (:func:`attention_packed_reference`); out = Σ_h attn_h·W_out[h] in f32,
+    rounded to x's dtype.
+
+    :param x: [B, T, C] the normalized block input
+    :param w_qkv: [C, 3·H·ch] (q | k | v columns); w_out: [H·ch, C_out]
+    :return: out [B, T, C_out] in x's dtype, lse [B, T, H] f32 (f64 for f64
+        input)
+    """
+    acc, wq, wo = _block_operands(x, w_qkv, w_out)
+    qkv = torch.matmul(x.to(acc), wq).to(x.dtype)
+    attn, lse = attention_packed_reference(qkv, n_heads, scale)
+    return torch.matmul(attn.to(acc), wo).to(x.dtype), lse
+
+
+def attention_block_backward_reference(x, w_qkv, w_out, lse, dout, n_heads: int,
+                                       scale: float):
+    """Plain PyTorch version of the row-6 kernel, step for step as
+    ``_block_bwd_kernel`` (``attention_pallas.py:481-553``): qkv recomputed
+    and rounded; P = exp(scale·QKᵀ − lse) and attn_h = P(rounded to v's
+    dtype)·V rounded to x's dtype; dW_out = Σ attnᵀ·dO; dAttn = dO·W_outᵀ
+    rounded to x's dtype; the packed backward of (qkv, attn, lse, dAttn)
+    (:func:`attention_packed_backward_reference`: Δ = rowsum(dAttn∘attn) in
+    f32, dS rounded) giving dqkv rounded to x's dtype; dX = dqkv·W_qkvᵀ and
+    dW_qkv = Σ Xᵀ·dqkv.
+
+    :param lse: [B, T, H] the forward's log-sum-exp
+    :param dout: [B, T, C_out] gradient of the block's output
+    :return: dx [B, T, C] in x's dtype; dw_qkv [C, 3·H·ch] and dw_out
+        [H·ch, C_out], summed over the batch, in f32 (f64 for f64 input)
+    """
+    acc, wq, wo = _block_operands(x, w_qkv, w_out)
+    b, t, _ = x.shape
+    qkv = torch.matmul(x.to(acc), wq).to(x.dtype)
+    ch = _split(qkv.shape[-1], n_heads)
+    q, k, v = (h.transpose(1, 2) for h in qkv.to(acc).view(b, t, 3, n_heads, ch).unbind(2))
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale
+                  - lse.to(acc).transpose(1, 2).unsqueeze(-1))
+    attn = torch.matmul(p.to(x.dtype).to(acc), v).to(x.dtype)
+    attn = attn.transpose(1, 2).reshape(b, t, n_heads * ch)
+    dattn = torch.matmul(dout.to(acc), wo.t()).to(x.dtype)
+    dqkv = attention_packed_backward_reference(qkv, attn, lse, dattn, n_heads, scale)
+    dx = torch.matmul(dqkv.to(acc), wq.t()).to(x.dtype)
+    dw_qkv = torch.einsum("btc,btn->cn", x.to(acc), dqkv.to(acc))
+    dw_out = torch.einsum("btp,bto->po", attn.to(acc), dout.to(acc))
+    return dx, dw_qkv, dw_out
+
+
+def _check_weight(w: torch.Tensor, x: torch.Tensor, what: str):
+    """The block kernels read f32 weights through their strides, so a
+    transposed view needs no copy."""
+    if w.dtype != torch.float32 or w.device != x.device:
+        raise ValueError(f"{what}: the attention block kernels take f32 weights on x's "
+                         f"device, got {w.dtype} on {w.device}")
+
+
+def _like_weight(w: torch.Tensor) -> torch.Tensor:
+    """An f32 gradient laid out as ``w`` where w is row- or column-major."""
+    if w.t().is_contiguous() and not w.is_contiguous():
+        return torch.empty_like(w.t(), dtype=torch.float32).t()
+    return torch.empty(w.shape, dtype=torch.float32, device=w.device)
+
+
+def _check_block_input(x: torch.Tensor, ch: int, what: str):
+    _check_kernel_input(x, ch, what)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: the attention block kernels need a 16-byte aligned tensor")
+
+
+def _splits(rows: int, cols: int, depth: int, device) -> int:
+    """K splits of a weight-gradient product: enough [64, 64] tiles for two
+    blocks on every SM, each split at least 256 rows deep. A function of the
+    shape and the card alone, so the sums' order repeats from run to run."""
+    tiles = -(-rows // 64) * -(-cols // 64)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-2 * sms // tiles), depth // 256))
+
+
+def _launch_block(x, w_qkv, w_out, n_heads: int, scale: float):
+    global block_launch_count
+    b, t, c = x.shape
+    ch = w_qkv.shape[1] // (3 * n_heads)
+    width, c_out = n_heads * ch, w_out.shape[1]
+    _check_block_input(x, ch, "x")
+    _check_grid(b, n_heads)
+    _check_weight(w_qkv, x, "w_qkv")
+    _check_weight(w_out, x, "w_out")
+    out = torch.empty((b, t, c_out), dtype=x.dtype, device=x.device)
+    lse = torch.empty((b, t, n_heads), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((b, t, 3 * width), dtype=x.dtype, device=x.device)
+    attn = torch.empty((b, t, width), dtype=x.dtype, device=x.device)
+    _call("attention_block", "attention_block_fwd",
+          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 4
+          + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int],
+          [x.data_ptr(), w_qkv.data_ptr(), *w_qkv.stride(), w_out.data_ptr(), *w_out.stride(),
+           out.data_ptr(), lse.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+           b, t, c, n_heads, ch, c_out, float(scale), _DTYPE_CODES[x.dtype]], x.device)
+    block_launch_count += 1
+    return out, lse
+
+
+def _launch_block_backward(x, w_qkv, w_out, lse, dout, n_heads: int, scale: float):
+    global block_bwd_launch_count
+    b, t, c = x.shape
+    ch = w_qkv.shape[1] // (3 * n_heads)
+    width, c_out = n_heads * ch, w_out.shape[1]
+    _check_block_input(x, ch, "x")
+    _check_block_input(dout, ch, "dout")
+    if dout.shape != (b, t, c_out) or dout.dtype != x.dtype or dout.device != x.device:
+        raise ValueError(f"dout must be x's dtype and device, [B, T, C_out] = {(b, t, c_out)}, "
+                         f"got {tuple(dout.shape)}")
+    _check_lse(lse, (b, t, n_heads), x)
+    _check_grid(b, n_heads)
+    _check_weight(w_qkv, x, "w_qkv")
+    _check_weight(w_out, x, "w_out")
+    dx = torch.empty_like(x)
+    dw_qkv, dw_out = _like_weight(w_qkv), _like_weight(w_out)
+
+    def scratch(cols, dtype=x.dtype):
+        return torch.empty((b * t, cols), dtype=dtype, device=x.device)
+
+    qkv, dqkv, attn, dattn = scratch(3 * width), scratch(3 * width), scratch(width), scratch(width)
+    delta = scratch(n_heads, torch.float32)
+    splits_qkv = _splits(c, 3 * width, b * t, x.device)
+    splits_out = _splits(width, c_out, b * t, x.device)
+    split_ws = torch.empty(max(splits_qkv * c * 3 * width if splits_qkv > 1 else 0,
+                               splits_out * width * c_out if splits_out > 1 else 0, 1),
+                           dtype=torch.float32, device=x.device)
+    _call("attention_block_bwd", "attention_block_bwd",
+          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 6
+          + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int],
+          [x.data_ptr(), w_qkv.data_ptr(), *w_qkv.stride(), w_out.data_ptr(), *w_out.stride(),
+           lse.data_ptr(), dout.data_ptr(), dx.data_ptr(), dw_qkv.data_ptr(), *dw_qkv.stride(),
+           dw_out.data_ptr(), *dw_out.stride(), qkv.data_ptr(), attn.data_ptr(),
+           dattn.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
+           split_ws.data_ptr(), splits_qkv, splits_out, b, t, c, n_heads, ch, c_out,
+           float(scale), _DTYPE_CODES[x.dtype]], x.device)
+    block_bwd_launch_count += 1
+    return dx, dw_qkv, dw_out
+
+
+def attention_block(x, w_qkv, w_out, n_heads: int, scale: float = None):
+    """attention(x·W_qkv)·W_out with per-head softmax attention: the row-5
+    kernel on a CUDA tensor, its plain version on a CPU tensor.
+
+    :param x: [B, T, C]; w_qkv: [C, 3·H·ch]; w_out: [H·ch, C_out] (f32 on
+        the card, any strides)
+    :param scale: logit scale, 1/sqrt(ch) when None
+    :return: out [B, T, C_out] in x's dtype, lse [B, T, H] f32
+    """
+    scale = _check_block(x, w_qkv, w_out, n_heads, scale)
+    if _uses_kernel(x):
+        return _launch_block(x, w_qkv, w_out, n_heads, scale)
+    return attention_block_reference(x, w_qkv, w_out, n_heads, scale)
+
+
+def attention_block_backward(x, w_qkv, w_out, lse, dout, n_heads: int, scale: float = None):
+    """dx, dw_qkv, dw_out of :func:`attention_block` from its residuals and
+    the output's gradient ``dout``: the row-6 kernel on a CUDA tensor, its
+    plain version on a CPU tensor. The weight gradients are f32 (f64 for f64
+    input on the CPU), summed over the batch."""
+    scale = _check_block(x, w_qkv, w_out, n_heads, scale)
+    if _uses_kernel(x):
+        return _launch_block_backward(x, w_qkv, w_out, lse, dout, n_heads, scale)
+    return attention_block_backward_reference(x, w_qkv, w_out, lse, dout, n_heads, scale)
+
+
+class _FusedAttentionBlock(torch.autograd.Function):
+    """Row 5 forward, row 6 backward; residuals (x, W_qkv, W_out, lse) as in
+    ``_fused_block_fwd`` (``attention_pallas.py:594-598``). The weight
+    gradients come back in the weights' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, w_out, n_heads, scale):
+        out, lse = attention_block(x, w_qkv, w_out, n_heads, scale)
+        ctx.save_for_backward(x, w_qkv, w_out, lse)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w_qkv, w_out, lse = ctx.saved_tensors
+        dx, dw_qkv, dw_out = attention_block_backward(
+            x, w_qkv, w_out, lse, _contiguous_dout(dout), ctx.n_heads, ctx.scale)
+        return dx, dw_qkv.to(w_qkv.dtype), dw_out.to(w_out.dtype), None, None
+
+
+def fused_attention_block(x, w_qkv, w_out, n_heads: int, scale: float = None) -> torch.Tensor:
+    """(x·W_qkv) → multi-head attention → (·W_out) (counterpart of
+    ``fused_attention_block``, ``attention_pallas.py:945``): the block's
+    projections and attention without its normalization.
+
+    :param x: [B, T, C] the normalized block input
+    :param w_qkv: [C, 3·H·ch] effective qkv weight (q | k | v column blocks,
+        heads contiguous in each); w_out: [H·ch, C_out] effective output
+        weight. On the card they are read through their strides, so the
+        transposed [out, in] view of a 1×1 convolution's weight is no copy
+    :param scale: logit scale, 1/sqrt(ch) when None
+    :return: [B, T, C_out] in x's dtype; its gradient runs the row-6 kernel
+        on a CUDA tensor and the plain backward on a CPU tensor
+    """
+    scale = _check_block(x, w_qkv, w_out, n_heads, scale)
+    return _FusedAttentionBlock.apply(x, w_qkv, w_out, n_heads, float(scale))

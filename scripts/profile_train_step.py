@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where a train step's device time goes: the FFHQ128 CNN VAE or the FFHQ128
-ViT VAE at full width.
+"""Where a train step's device time goes: the FFHQ128 CNN VAE (unfused, or
+with its attention blocks fused) or the FFHQ128 ViT VAE at full width.
 
-    python scripts/profile_train_step.py [--seed 0] [--model cnn|vit]
+    python scripts/profile_train_step.py [--seed 0] [--model cnn|cnn_fused|vit]
 
 Builds the model as chip_smoke.py does (bf16 activations, f32 parameters and
-Adam state, seeded random weights; the CNN at batch 128 and lr 1e-4, the ViT
-of configs/vae/vit_ffhq128.yaml at batch 32 and lr 1e-3), takes three warm-up
+Adam state, seeded random weights; the CNN at batch 128 and lr 1e-4, with
+``cnn_fused`` through the fused attention block, rows 5 and 6; the ViT of
+configs/vae/vit_ffhq128.yaml at batch 32 and lr 1e-3), takes three warm-up
 steps on the seeded synthetic FFHQ128 fallback, times five train steps, then
 traces five more with ``torch.profiler`` on the card. Prints the wall time of
 a step with and without the profiler (host clock, synchronised), the device
@@ -30,7 +31,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # first match wins, on the lower-cased kernel name
 CATEGORIES = [
-    ("attention (port kernels)", ("attention_",)),
+    ("attention (port kernels)", ("attention_", "attn_from_lse")),
+    ("fused-block projections (port kernels)", ("block_gemm::",)),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad", "winograd")),
     ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
     ("optimizer", ("adam", "multi_tensor", "foreach")),
@@ -51,8 +53,9 @@ def category(name: str) -> str:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and data")
-    parser.add_argument("--model", choices=("cnn", "vit"), default="cnn",
-                        help="the FFHQ128 CNN VAE or the FFHQ128 ViT VAE")
+    parser.add_argument("--model", choices=("cnn", "cnn_fused", "vit"), default="cnn",
+                        help="the FFHQ128 CNN VAE, the same with its attention blocks "
+                             "fused, or the FFHQ128 ViT VAE")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_step: CUDA is not available", file=sys.stderr)
@@ -64,8 +67,10 @@ def main(argv=None) -> int:
     from ot_vae_tpu_torch.trainer import Trainer
 
     _build.build_all()
-    if args.model == "cnn":
-        build, batch_size, lr = chip_smoke.ffhq128_vae, chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_LR
+    if args.model in ("cnn", "cnn_fused"):
+        fused = args.model == "cnn_fused"
+        build, batch_size, lr = (lambda dtype, seed: chip_smoke.ffhq128_vae(dtype, seed, fused),
+                                 chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_LR)
     else:
         build, batch_size, lr = (lambda dtype, seed: chip_smoke.ffhq_vit_vae(seed, dtype),
                                  chip_smoke.VIT_TRAIN_BATCH, chip_smoke.VIT_TRAIN_LR)
