@@ -61,11 +61,15 @@ toolkit. Phases, each printing one line:
 14. BTHD and BHTC kernels: the BTHD attention forward kernel (row 7) against
    its plain version at the two ViTs' four attention shapes (B=64), a cross
    shape (Tq != Tk), a ragged T with an odd head dim, causal, with a seeded
-   post-softmax multiplier and both, bf16 and f32; the BHTC kernel (row 3,
-   the same source) at the self-attention shapes in [B, H, T, d]; the times
-   of both at the FFHQ128 ViT's two shapes beside the bound, the plain
-   version and SDPA (a yardstick only); then the fused_attention entry, the
-   only way to row 3 (no model path reaches it), driven at the ViTs' shapes;
+   post-softmax multiplier and both, bf16 and f32; in bf16 also where the
+   tensor-core kernel's 64-row tiles and padded head dims can break (T =
+   1000 and 65 at d = 128, d = 16, 48, 80, 112 and 13, causal with the
+   multiplier at T = 1024); the BHTC kernel (row 3, the same source) at the
+   self-attention shapes in [B, H, T, d]; the times of both at the FFHQ128
+   ViT's two shapes beside the bound (and their share of it), the plain
+   version and SDPA (a yardstick only, and the factor against it); then the
+   fused_attention entry, the only way to row 3 (no model path reaches it),
+   driven at the ViTs' shapes;
 15. serve the conditional CIFAR10 ViT VAE (configs/vae/vit.yaml, full
    width, seeded random weights, f32) through InferenceEngine with labels
    from the seeded CIFAR10 fallback at buckets (1, 8, 64): shapes,
@@ -82,11 +86,14 @@ toolkit. Phases, each printing one line:
 18. BTHD and BHTC backward kernels: rows 8 and 4 (one source) against their
    plain versions at the two ViTs' four train shapes (the CIFAR10 ViT's with
    a seeded multiplier), a cross shape, a ragged T with an odd head dim,
-   causal, and causal with the multiplier at d = 96 and 128, bf16 and f32;
-   their times at the FFHQ128 ViT's train shapes (B=32) beside the bound,
-   the plain version, SDPA's backward (a yardstick only), and the port's
-   forward + backward beside SDPA's; then the fused_attention entry's
-   backward, the only way to row 4, at the ViTs' shapes;
+   causal, and causal with the multiplier at d = 96 and 128, bf16 and f32,
+   and in bf16 at phase 14's tile and padding shapes; every bf16 check runs
+   twice on the same inputs and must repeat bit for bit; their times at the
+   FFHQ128 ViT's train shapes (B=32) beside the bound (and their share of
+   it), the plain version, SDPA's backward (a yardstick only, and the
+   factor against it), and the port's forward + backward beside SDPA's;
+   then the fused_attention entry's backward, the only way to row 4, at the
+   ViTs' shapes;
 19. ViT train card vs CPU: f32, TF32 off, batch 4, two optimizer steps of
    the conditional CIFAR10 ViT VAE (full width, dropout 0.1) and of the
    FFHQ128 ViT VAE (full width, depth 2), from the same weights, images,
@@ -270,10 +277,22 @@ BTHD_SHAPES = [(64, 1024, 1024, 4, 128, False, False), (64, 1024, 1024, 2, 128, 
                (8, 129, 129, 3, 40, True, True), (8, 150, 150, 2, 96, True, True),
                (8, 150, 150, 2, 128, True, True)]
 BTHD_KEEP = 0.9  # keep probability of the seeded multiplier (mask / keep)
+# bf16 rows 7, 3, 8 and 4 run on the tensor cores in 64-row tiles with head
+# dims padded to a multiple of 16, copied by cp.async when d is a multiple of
+# 8 and by masked scalar loads otherwise; these shapes (bf16 only: f32 keeps
+# the CUDA-core kernels) cross those edges: T = 1000 and 65 at d = 128
+# (ragged across 64-row tiles, 65 one row past a tile), d = 16, 48, 80 and
+# 112 (padded to no width or to the next 16), d = 13 (padded, scalar loads;
+# causal with the multiplier, T = 130 two rows past two tiles), and causal
+# with the multiplier at the FFHQ128 ViT encoder's width, T = 1024, B = 4
+BTHD_TILE_SHAPES = [(4, 1000, 1000, 2, 128, False, False), (8, 65, 65, 2, 128, False, False),
+                    (8, 100, 100, 2, 16, False, False), (8, 100, 130, 2, 48, False, True),
+                    (8, 100, 100, 2, 80, True, False), (8, 100, 100, 2, 112, False, False),
+                    (8, 130, 130, 2, 13, True, True), (4, 1024, 1024, 4, 128, True, True)]
 # rows 7 and 3 take the gates of row 1 (BF16_REL_TOL, OUT_TOL, LSE_TOL); on an
-# H100 bf16 read max_rel_err 1.13e-2 to 2.82e-2 (causal with the multiplier
-# at d = 128 the largest) and f32 max abs 5.4e-7 to 1.8e-6 over these shapes
-# (PERF.md)
+# H100 the tensor-core kernel (bf16) read max_rel_err 1.13e-2 to 3.41e-2
+# (causal with the multiplier at T = 1024, d = 128 the largest) and the
+# CUDA-core kernel (f32) max abs 6.0e-7 to 1.7e-6 over these shapes (PERF.md)
 # the conditional CIFAR10 ViT VAE of configs/vae/vit.yaml
 CIFAR_VIT_ENCODER = dict(image_size=32, patch_size=8, dim=128, depth=3, heads=4,
                          channels=3, num_classes=10, n_embed_tokens=2,
@@ -314,8 +333,9 @@ VIT_BF16_PATH_RMS_TOL = 5e-3
 # causal, and causal with the multiplier at d = 96 and 128. Both kernels take
 # the gates of row 2: bf16 max_rel_err (BF16_REL_TOL, with phase 10's RMS
 # floor) over each of dq, dk and dv, and f32 max abs error over max(1,
-# max|grad|) (BWD_TOL). On an H100 bf16 read max_rel_err up to 1.46e-2 (the
-# FFHQ128 encoder's shape) and f32 max abs error up to 3.6e-6 (PERF.md)
+# max|grad|) (BWD_TOL). On an H100 the tensor-core kernels (bf16) read
+# max_rel_err up to 1.03e-2 (causal at d = 64) and the CUDA-core kernels
+# (f32) max abs error up to 3.4e-6 (PERF.md)
 BWD_BTHD_SHAPES = [(32, 1024, 1024, 4, 128, False, False),
                    (32, 1024, 1024, 2, 128, False, False),
                    (50, 19, 19, 4, 32, False, True), (50, 18, 18, 4, 32, False, True),
@@ -1252,6 +1272,15 @@ def _gate(name, dtype, got, ref, lse, ref_lse):
     return err
 
 
+def _with_shares(row: dict) -> dict:
+    """``row`` with its share of the bound (bound_ms / ms) and its factor
+    against the library call (ms / library_ms, None without one)."""
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["library_factor"] = (None if row.get("library_ms") is None
+                             else row["ms"] / row["library_ms"])
+    return row
+
+
 def phase_bthd(attention):
     """Rows 7 and 3 against their plain versions; their times at the FFHQ128
     ViT's shapes; the fused_attention entry's launches at the ViTs' shapes."""
@@ -1260,7 +1289,8 @@ def phase_bthd(attention):
     worst = {"bthd": 0.0, "bhtc": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        for b, tq, tk, h, d, causal, mult in BTHD_SHAPES:
+        shapes = BTHD_SHAPES + (BTHD_TILE_SHAPES if dtype == torch.bfloat16 else [])
+        for b, tq, tk, h, d, causal, mult in shapes:
             q, k, v, m = _bthd_inputs(gen, b, tq, tk, h, d, mult, dtype)
             scale = 1.0 / math.sqrt(d)
             out, lse = attention.attention_bthd(q, k, v, h, scale, causal, m)
@@ -1309,11 +1339,12 @@ def phase_bthd(attention):
                 qb, kb, vb, scale), flush=flush, reps=10),
             "library_ms": library_ms, **bound}
         for kind in ("bthd", "bhtc"):
-            row = timings[(kind, h)]
+            row = _with_shares(timings[(kind, h)])
             print(f"{kind} time bf16 B={b} T={t} H={h} d={d}: kernel {row['ms']:.4f} ms, "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.3e} FLOP, "
-                  f"{n_bytes / 1e6:.1f} MB), plain {row['plain_ms']:.4f} ms, sdpa "
-                  f"{row['library_ms']:.4f} ms; {flops / row['ms'] / 1e9:.1f} TFLOP/s",
+                  f"{n_bytes / 1e6:.1f} MB; share {row['bound_share']:.4f}), plain "
+                  f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms (kernel "
+                  f"{row['library_factor']:.2f}x); {flops / row['ms'] / 1e9:.1f} TFLOP/s",
                   flush=True)
         del q, k, v, qb, kb, vb
     del flush
@@ -1551,9 +1582,11 @@ def phase_bthd_backward(attention):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2579)
     worst = {"bthd": 0.0, "bhtc": 0.0}
+    repeats = 0
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        for b, tq, tk, h, d, causal, mult in BWD_BTHD_SHAPES:
+        shapes = BWD_BTHD_SHAPES + (BTHD_TILE_SHAPES if dtype == torch.bfloat16 else [])
+        for b, tq, tk, h, d, causal, mult in shapes:
             q, k, v, m = _bthd_inputs(gen, b, tq, tk, h, d, mult, dtype)
             dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             scale = 1.0 / math.sqrt(d)
@@ -1568,6 +1601,11 @@ def phase_bthd_backward(attention):
             err = _gate_backward(f"bthd backward check {name} {shape}", dtype, grads, refs)
             if dtype == torch.bfloat16:
                 worst["bthd"] = max(worst["bthd"], err)
+                again = attention.attention_bthd_backward(q, k, v, out, lse, dout, h, scale,
+                                                          causal, m)
+                check(all(torch.equal(g, a) for g, a in zip(grads, again)),
+                      f"bthd backward {shape}: a second run differs")
+                repeats += 1
             if tq == tk and not (causal or mult):
                 qb, kb, vb, ob, db = (_bhtc(x, h) for x in (q, k, v, out, dout))
                 ob, lse_b = attention.attention_bhtc(qb, kb, vb, scale)
@@ -1579,8 +1617,13 @@ def phase_bthd_backward(attention):
                                      dtype, grads, refs)
                 if dtype == torch.bfloat16:
                     worst["bhtc"] = max(worst["bhtc"], err)
+                    again = attention.attention_bhtc_backward(qb, kb, vb, ob, lse_b, db, scale)
+                    check(all(torch.equal(g, a) for g, a in zip(grads, again)),
+                          f"bhtc backward B={b} H={h} T={tq} d={d}: a second run differs")
+                    repeats += 1
                 del qb, kb, vb, ob, db, lse_b
             del q, k, v, m, dout, out, lse, grads, refs
+    print(f"bthd/bhtc backward bf16: {repeats} checks repeated bit for bit", flush=True)
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1628,13 +1671,14 @@ def phase_bthd_backward(attention):
                 qb, kb, vb, ob, lse_b, db, scale), flush, reps=5),
             "library_ms": library_ms, **bound}
         for kind in ("bthd", "bhtc"):
-            row = timings[(kind, h)]
+            row = _with_shares(timings[(kind, h)])
             both = (f"; fwd+bwd: port {row['fwd_bwd_ms']:.4f} ms, sdpa "
                     f"{row['sdpa_fwd_bwd_ms']:.4f} ms" if kind == "bthd" else "")
             print(f"{kind} backward time bf16 B={b} T={t} H={h} d={d}: kernel "
                   f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                  f"{flops:.3e} FLOP, {n_bytes / 1e6:.1f} MB), plain {row['plain_ms']:.4f} "
-                  f"ms, sdpa backward {row['library_ms']:.4f} ms{both}; "
+                  f"{flops:.3e} FLOP, {n_bytes / 1e6:.1f} MB; share "
+                  f"{row['bound_share']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa backward "
+                  f"{row['library_ms']:.4f} ms (kernel {row['library_factor']:.2f}x){both}; "
                   f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, dout, out, lse, qb, kb, vb, ob, db, lse_b, sq, sk, sv, sdpa_out, xq, xk, xv
     del flush
@@ -2298,6 +2342,8 @@ def main(argv=None) -> int:
             "bound_by": timing["bound_by"],
             "library_ms": timing["library_ms"],
         })
+    for kernel in kernels:
+        _with_shares(kernel)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -36,14 +36,17 @@ with cross lengths, an in-kernel causal mask and a shared post-softmax
 multiplier [Tq, Tk]; and ``_fwd_kernel`` (row 3, reached through
 ``fused_attention``) on [B, H, T, d]. At the FFHQ128 ViT encoder's layer
 (B=64, H=4, d=128, T=1024, bf16) that is 1.37e11 FLOP against 268 MB, so
-its bound is the tensor-core rate (≈0.14 ms); it runs on CUDA-core FMAs far
-above it. The ViT's attention takes row 7 at every shape; row 3 has no
-model path in the port (the TPU reached it only for head dims whose lanes do
-not tile 128). Their backward kernels (``csrc/attention_bthd_bwd.cu``, one
-source again) replace ``_bwd_kernel_bthd`` (row 8) and ``_bwd_kernel``
-(row 4); at the encoder's layer at the train batch (B=32) the backward is
-1.72e11 FLOP against 268 MB, bound by the tensor-core rate (≈0.17 ms), and
-runs on CUDA-core FMAs as well. :func:`fused_attention_bthd`,
+its bound is the tensor-core rate (≈0.14 ms). The ViT's attention takes
+row 7 at every shape; row 3 has no model path in the port (the TPU reached
+it only for head dims whose lanes do not tile 128). Their backward kernels
+(``csrc/attention_bthd_bwd.cu``, one source again) replace
+``_bwd_kernel_bthd`` (row 8) and ``_bwd_kernel`` (row 4); at the encoder's
+layer at the train batch (B=32) the backward is 1.72e11 FLOP against 268
+MB, bound by the tensor-core rate (≈0.17 ms). In both sources the dtype
+picks the kernel: bf16 runs on the tensor cores (``mma.sync`` in 64-row
+tiles, the flash-attention-2 design, ``csrc/mma_bf16.cuh``), f32 on
+CUDA-core FMAs, which keep f32 products exact where tensor cores would take
+TF32. :func:`fused_attention_bthd`,
 :func:`fused_attention_bthd_dropout` and :func:`fused_attention` tie each
 forward to its backward in a ``torch.autograd.Function``, saving the
 residuals the JAX package's ``custom_vjp`` saves.

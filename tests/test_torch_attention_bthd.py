@@ -6,7 +6,9 @@ The CUDA kernels (``ot_vae_tpu_torch/ops/csrc/attention_bthd.cu`` and
 against the plain versions tested here. On the CPU the entry points run the
 plain forward and backward through the same autograd Functions; on a CUDA
 tensor their backward launches the backward kernel (rows 8 and 4), which a
-mocked launch shows here.
+mocked launch shows here, and every call reaches its C symbol with the dtype
+code that picks the bf16 tensor-core or the f32 CUDA-core kernels (a
+recorded, not run, C call).
 """
 import jax
 import jax.numpy as jnp
@@ -30,10 +32,11 @@ from ot_vae_tpu_torch.ops.attention import (
 )
 
 # f32 on both sides, the same products and softmax summed in another order
-# over at most 40 keys: measured below 1e-6, held at 1e-5
+# over at most 130 keys: measured below 1e-6, held at 1e-5
 ATOL = 1e-5
 # bf16 inputs: both round P to bf16 before P·V and the output to bf16, so an
-# entry |out| < 4 may land one bf16 ulp (2^-6 there) apart
+# entry |out| < 4 may land one bf16 ulp (2^-6 there) apart (the tile-edge
+# cases measured 0)
 BF16_ATOL = 2.0**-6
 
 # (B, Tq, Tk, H, d, causal, mult): self-attention at the conditional ViT's
@@ -48,6 +51,18 @@ CASES = [
     (1, 21, 21, 2, 12, True, True),
 ]
 IDS = ["self", "cross", "ragged_odd_d", "causal", "mult", "causal_mult"]
+# where the bf16 kernel's 64-row tiles and padded head dims can break: T one
+# row past a tile at d = 48 (padded to no width), two rows past two tiles at
+# d = 13 (padded to 16, scalar copies) with causal and the multiplier, and
+# cross lengths across tiles with the multiplier
+TILE_CASES = [
+    (1, 65, 65, 2, 48, False, False),
+    (1, 130, 130, 1, 13, True, True),
+    (2, 65, 130, 2, 16, False, True),
+]
+TILE_IDS = ["t65_d48", "t130_d13_causal_mult", "cross_65_130_mult"]
+CASES += TILE_CASES
+IDS += TILE_IDS
 
 
 def _inputs(b, tq, tk, h, d, mult, seed):
@@ -93,6 +108,24 @@ def test_bthd_bf16_reference_matches_pallas():
                                     None, h, scale, False, True)
     out, lse = attention_bthd_reference(*(_t(x).bfloat16() for x in (q, k, v)), h, scale)
     assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
+                               atol=BF16_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,mult", TILE_CASES, ids=TILE_IDS)
+def test_bthd_bf16_tile_edges_match_pallas(b, tq, tk, h, d, causal, mult):
+    """bf16 out and lse at the tile and padding edges against
+    ``_bthd_fwd_call`` in bf16, interpret mode."""
+    q, k, v, m = _inputs(b, tq, tk, h, d, mult, seed=tq + tk + d)
+    scale = 1.0 / np.sqrt(d)
+    jm = None if m is None else jnp.asarray(m, jnp.bfloat16)
+    want, want_lse = _bthd_fwd_call(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), jm,
+                                    h, scale, causal, True)
+    tm = None if m is None else _t(m).bfloat16()
+    out, lse = attention_bthd_reference(*(_t(x).bfloat16() for x in (q, k, v)), h, scale,
+                                        causal, tm)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, tq, h * d)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
                                atol=BF16_ATOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4, rtol=0)
@@ -220,3 +253,69 @@ def test_cuda_backward_raises_not_a_fallback(mocked_card, monkeypatch, entry):
     monkeypatch.setattr(attention, f"_launch_{kind}_backward", fail)
     with pytest.raises(RuntimeError, match="launch failed"):
         run()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layout", ["bthd", "bhtc"])
+def test_cuda_calls_reach_the_kernel_symbol(monkeypatch, layout, dtype):
+    """On a CUDA tensor the forward and backward entries of both layouts call
+    their library's C symbol with the dtype code that picks the kernel (1:
+    bf16, the tensor-core kernels; 0: f32, the CUDA-core ones), fresh
+    outputs of the expected shapes, an f32 lse and, for the backward, an f32
+    D scratch of [B, H, Tq]; no call reaches a plain version. The C calls
+    are recorded, not run."""
+    calls, made = [], {}
+
+    def record(library, symbol, argtypes, args, device):
+        assert len(argtypes) == len(args)
+        calls.append((library, symbol, args))
+
+    def tracked(make):
+        def wrapper(*args, **kwargs):
+            x = make(*args, **kwargs)
+            made[x.data_ptr()] = (tuple(x.shape), x.dtype)
+            return x
+        return wrapper
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(attention, "_uses_kernel", lambda x: True)
+    monkeypatch.setattr(attention, "_call", record)
+    monkeypatch.setattr(torch, "empty", tracked(torch.empty))
+    monkeypatch.setattr(torch, "empty_like", tracked(torch.empty_like))
+    for name in ("_attention_heads", "_attention_heads_backward", "attention_bthd_reference",
+                 "attention_bthd_backward_reference", "attention_bhtc_reference",
+                 "attention_bhtc_backward_reference"):
+        monkeypatch.setattr(attention, name, refuse)
+
+    b, t, h, d = 2, 70, 2, 16
+    q, k, v, m = _inputs(b, t, t, h, d, layout == "bthd", seed=8)
+    x = [_t(a).to(getattr(torch, dtype)) for a in (q, k, v, q)]
+    if layout == "bthd":
+        mult = _t(m).to(x[0].dtype)
+        out, lse = attention_bthd(*x[:3], h, None, False, mult)
+        attention.attention_bthd_backward(*x[:3], out, lse, x[3], h, None, False, mult)
+    else:
+        x = [a.view(b, t, h, d).transpose(1, 2).contiguous() for a in x]
+        out, lse = attention_bhtc(*x[:3])
+        attention.attention_bhtc_backward(*x[:3], out, lse, x[3])
+    code = {"bfloat16": 1, "float32": 0}[dtype]
+    (lib_f, sym_f, fwd), (lib_b, sym_b, bwd) = calls
+    assert (lib_f, sym_f) == ("attention_bthd", f"attention_{layout}_fwd")
+    assert (lib_b, sym_b) == ("attention_bthd_bwd", f"attention_{layout}_bwd")
+    assert fwd[-1] == code and bwd[-1] == code
+    stat = (b, h, t) if layout == "bthd" else (b * h, t)
+    like_q = (tuple(x[0].shape), x[0].dtype)
+    if layout == "bthd":
+        assert fwd[3] == mult.data_ptr() and bwd[3] == mult.data_ptr()
+        out_p, lse_p = fwd[4], fwd[5]
+        dq_p, dk_p, dv_p, delta_p = bwd[7:11]
+    else:
+        out_p, lse_p = fwd[3], fwd[4]
+        dq_p, dk_p, dv_p, delta_p = bwd[6:10]
+    assert made[out_p] == like_q and out_p == out.data_ptr()
+    assert made[lse_p] == (stat, torch.float32) and lse_p == lse.data_ptr()
+    assert made[dq_p] == made[dk_p] == made[dv_p] == like_q
+    assert made[delta_p] == (stat, torch.float32)
+    assert len({out_p, lse_p, dq_p, dk_p, dv_p, delta_p}) == 6
