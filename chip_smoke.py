@@ -8,20 +8,26 @@ toolkit. Phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles every kernel in ot_vae_tpu_torch/ops/csrc with nvcc;
-3. kernel: the packed-attention CUDA kernel against its plain PyTorch version
-   at the FFHQ128 model's six attention shapes (B=64), bf16 and f32, and its
-   time beside the bound, the plain version and SDPA (a yardstick only);
+3. kernel: the packed-attention CUDA kernel (row 1) against its plain
+   PyTorch version at the FFHQ128 model's six attention shapes (B=64), bf16
+   and f32, and in bf16 also where the tensor-core kernel's 64-row tiles,
+   padded head dims and 16-byte copies can break (T = 1000 and 65 at C = 64,
+   C = 16, 48 and 128, C = 13 with H = 3); its times at T=1024, H=2 and
+   T=256, H=4 beside the bound (and their share of it), the plain version
+   and SDPA (a yardstick only, and the factor against it);
 4. serve: the FFHQ128 CNN VAE at full width, seeded random weights, bf16
    activations with f32 parameters, through InferenceEngine with buckets
    (1, 8, 64); checks shapes, finiteness and the kernel's launch counts, and
    prints img/s per endpoint at bucket 64;
 5. whole path: the same weights in f32 on the card against the port on the
    CPU (plain attention), reconstruct of 4 images with the same noise;
-6. backward kernel: the packed-attention backward CUDA kernel against its
-   plain PyTorch version at the six attention shapes at the train batch of
-   128 and two ragged ones, bf16 and f32; its time beside the bound, the
-   plain version and SDPA's backward (a yardstick), and the port's fwd+bwd
-   beside SDPA's;
+6. backward kernel: the packed-attention backward CUDA kernel (row 2)
+   against its plain PyTorch version at the six attention shapes at the
+   train batch of 128 and two ragged ones, bf16 and f32, and in bf16 at
+   phase 3's tile and alignment shapes; every bf16 check runs twice on the
+   same inputs and must repeat bit for bit; its times beside the bound (and
+   their share of it), the plain version and SDPA's backward (a yardstick,
+   and the factor against it), and the port's fwd+bwd beside SDPA's;
 7. train card vs CPU: f32, TF32 off, the same initial weights and ε, batch
    4, two optimizer steps at full width; losses and the first step's
    gradients on the card against the port on the CPU, the gradients held
@@ -173,6 +179,16 @@ PATH_TOL = 1e-4
 TRAIN_BATCH = 128
 # ragged backward checks as (T, H, C): odd T, the smallest and largest head dim
 RAGGED_SHAPES = [(37, 3, 8), (100, 1, 128)]
+# bf16 rows 1 and 2 run on the tensor cores in 64-row tiles with head dims
+# padded to a multiple of 16, copied by cp.async when C is a multiple of 8
+# and by masked scalar loads otherwise; these (B, T, H, C) (bf16 only: f32
+# keeps the CUDA-core kernels) cross those edges: T = 1000 and 65 at the
+# path's C = 64 (ragged across 64-row tiles, 65 one row past a tile),
+# C = 16, 48 and 128 (padded to no width), and C = 13 with H = 3, where
+# H·C = 39 starts the k and v column blocks off 16 bytes (scalar copies;
+# T = 130 two rows past two tiles)
+PACKED_TILE_SHAPES = [(8, 1000, 2, 64), (16, 65, 2, 64), (16, 100, 2, 16), (16, 100, 2, 48),
+                      (8, 100, 1, 128), (16, 130, 3, 13)]
 # backward kernel vs plain version. f32: max abs error over max(1, max|dqkv|),
 # the same f32 products summed in another order over up to 1024 rows
 # (measured 1.1e-6 to 3.6e-6 at |dqkv| < 3.6). bf16: max_rel_err (below); both
@@ -182,9 +198,12 @@ BWD_TOL = 1e-4
 # bf16 gate of both kernels: every entry's error over the larger of its own
 # size and the RMS of its block (q, k or v columns of dqkv; out), so that each
 # shape is held to its own scale. Rounding to bf16 alone moves an entry by
-# up to 2^-8 of itself; on an H100 the forward measured 1.08e-2 to 1.49e-2
-# and the backward 7.5e-3 to 1.58e-2 over the checked shapes (PERF.md), and
-# the limit is about four times the largest
+# up to 2^-8 of itself; on an H100 the CUDA-core kernels measured 1.08e-2 to
+# 1.49e-2 (forward) and 7.5e-3 to 1.58e-2 (backward), the tensor-core
+# kernels, which round the running maximum's P instead of the normalised
+# one, 1.23e-2 to 2.60e-2 (forward, phase 10's small head dims the largest)
+# and up to 1.44e-2 (backward) over the checked shapes (PERF.md); the limit
+# is about 2.4 times the largest
 BF16_REL_TOL = 2.0**-4
 TRAIN_STEPS = 20
 # Adam's learning rate of the gated fit. configs/vae/ffhq128.yaml trains at
@@ -423,35 +442,37 @@ def time_ms(fn, flush: torch.Tensor = None, reps: int = 25) -> float:
 
 
 def phase_kernel(attention):
-    """Kernel against its plain version at the path's shapes; times at the
-    T=1024 and T=256 shapes in bf16, the path's dtype."""
+    """Kernel against its plain version at the path's shapes and, in bf16,
+    the tile and alignment shapes; times at the T=1024 and T=256 shapes in
+    bf16, the path's dtype."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
     scale = 1.0 / math.sqrt(HEAD_DIM)
     worst = {}
+    path = [(BATCH, t, h, HEAD_DIM) for t, h in sorted({(t, h) for _, t, h in ATTN_SHAPES})]
     for dtype in (torch.bfloat16, torch.float32):
-        for t, h in sorted({(t, h) for _, t, h in ATTN_SHAPES}):
-            qkv = torch.randn((BATCH, t, 3 * h * HEAD_DIM), generator=gen,
-                              device="cuda").to(dtype)
-            out, lse = attention.attention_packed(qkv, h, scale)
+        for b, t, h, c in path + (PACKED_TILE_SHAPES if dtype == torch.bfloat16 else []):
+            qkv = torch.randn((b, t, 3 * h * c), generator=gen, device="cuda").to(dtype)
+            out, lse = attention.attention_packed(qkv, h, 1.0 / math.sqrt(c))
             torch.cuda.synchronize()
-            ref_out, ref_lse = attention.attention_packed_reference(qkv, h, scale)
+            ref_out, ref_lse = attention.attention_packed_reference(qkv, h, 1.0 / math.sqrt(c))
             err = (out.float() - ref_out.float()).abs().max().item()
             rel = max_rel_err(out, ref_out, 1)
             lse_err = (lse - ref_lse).abs().max().item()
             name = str(dtype).replace("torch.", "")
             gate = (f"max_rel_err={rel:.3e} (tol {BF16_REL_TOL:.1e})"
                     if dtype == torch.bfloat16 else f"(tol {OUT_TOL:.1e})")
-            print(f"kernel check {name} B={BATCH} T={t} H={h} C={HEAD_DIM}: "
+            print(f"kernel check {name} B={b} T={t} H={h} C={c}: "
                   f"out max_abs_err={err:.3e} {gate} "
                   f"lse max_abs_err={lse_err:.3e} (tol {LSE_TOL:.1e})", flush=True)
             ok = rel <= BF16_REL_TOL if dtype == torch.bfloat16 else err <= OUT_TOL
-            check(math.isfinite(err) and ok, f"attention out {name} T={t} H={h}: "
+            check(math.isfinite(err) and ok, f"attention out {name} T={t} H={h} C={c}: "
                                              f"abs {err}, rel {rel}")
             check(math.isfinite(lse_err) and lse_err <= LSE_TOL,
-                  f"attention lse {name} T={t} H={h}: {lse_err}")
+                  f"attention lse {name} T={t} H={h} C={c}: {lse_err}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+            del qkv, out, lse, ref_out, ref_lse
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     timings = {}
@@ -474,12 +495,13 @@ def phase_kernel(attention):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         }
-        timings[(t, h)] = row
+        timings[(t, h)] = _with_shares(row)
         print(f"kernel time bf16 B={BATCH} T={t} H={h} C={HEAD_DIM}: "
               f"kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-              f"sdpa {row['library_ms']:.4f} ms; "
-              f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+              f"({row['bound_by']}; share {row['bound_share']:.4f}), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms (kernel "
+              f"{row['library_factor']:.2f}x); {flops / row['ms'] / 1e9:.1f} TFLOP/s",
+              flush=True)
     del flush
     return worst, timings
 
@@ -627,16 +649,20 @@ def phase_whole_path(bf16_engine, seed: int):
 
 def phase_backward(attention):
     """Backward kernel against its plain version at the training path's
-    shapes (B=128) and two ragged ones; times at the T=1024 and T=256
-    shapes in bf16, the path's dtype."""
+    shapes (B=128), two ragged ones and, in bf16, the tile and alignment
+    shapes, every bf16 check twice and bit for bit; times at the T=1024 and
+    T=256 shapes in bf16, the path's dtype."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    shapes = [(t, h, HEAD_DIM) for t, h in sorted({(t, h) for _, t, h in ATTN_SHAPES})]
+    shapes = [(TRAIN_BATCH, t, h, c) for t, h, c in
+              [(t, h, HEAD_DIM) for t, h in sorted({(t, h) for _, t, h in ATTN_SHAPES})]
+              + RAGGED_SHAPES]
     worst = {}
+    repeats = 0
     for dtype in (torch.bfloat16, torch.float32):
-        for t, h, c in shapes + RAGGED_SHAPES:
-            b, scale = TRAIN_BATCH, 1.0 / math.sqrt(c)
+        for b, t, h, c in shapes + (PACKED_TILE_SHAPES if dtype == torch.bfloat16 else []):
+            scale = 1.0 / math.sqrt(c)
             qkv = torch.randn((b, t, 3 * h * c), generator=gen, device="cuda").to(dtype)
             dout = torch.randn((b, t, h * c), generator=gen, device="cuda").to(dtype)
             out, lse = attention.attention_packed(qkv, h, scale)
@@ -656,7 +682,14 @@ def phase_backward(attention):
             check(math.isfinite(err) and ok,
                   f"attention backward {name} T={t} H={h} C={c}: abs {err}, rel {rel}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+            if dtype == torch.bfloat16:
+                again = attention.attention_packed_backward(qkv, out, lse, dout, h, scale)
+                check(torch.equal(dqkv, again),
+                      f"attention backward B={b} T={t} H={h} C={c}: a second run differs")
+                repeats += 1
+                del again
             del qkv, dout, out, lse, dqkv, ref
+    print(f"attention backward bf16: {repeats} checks repeated bit for bit", flush=True)
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     timings = {}
@@ -694,10 +727,11 @@ def phase_backward(attention):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         }
-        timings[(t, h)] = row
+        timings[(t, h)] = _with_shares(row)
         print(f"backward time bf16 B={b} T={t} H={h} C={c}: kernel {row['ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-              f"{row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} ms; "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; share "
+              f"{row['bound_share']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa backward "
+              f"{row['library_ms']:.4f} ms (kernel {row['library_factor']:.2f}x); "
               f"fwd+bwd: port {row['fwd_bwd_ms']:.4f} ms, sdpa "
               f"{row['sdpa_fwd_bwd_ms']:.4f} ms; {flops / row['ms'] / 1e9:.1f} TFLOP/s",
               flush=True)

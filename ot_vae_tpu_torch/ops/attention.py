@@ -2,31 +2,37 @@
 PyTorch version.
 
 The kernel (``csrc/attention_packed.cu``) replaces the TPU kernel
-``_fwd_kernel_packed`` (``ot_vae_tpu/ops/attention_pallas.py``), reached there
-through ``fused_attention_packed``. It computes softmax(scale·QKᵀ)V for every
-head of one packed ``[B, T, 3·H·C]`` projection and the f32 log-sum-exp.
+``_fwd_kernel_packed`` (row 1, ``ot_vae_tpu/ops/attention_pallas.py``), reached
+there through ``fused_attention_packed``. It computes softmax(scale·QKᵀ)V for
+every head of one packed ``[B, T, 3·H·C]`` projection and the f32
+log-sum-exp ``[B, T, H]``.
 
 What bounds it on the H100: at the FFHQ128 decoder's 32² block (B=64, H=2,
 C=64, T=1024) the products take 3.4e10 FLOP and the tensors 68 MB, so the
 bound is the tensor-core rate (≈35 µs against ≈20 µs for the bytes). The
 TPU kernel keeps a whole [T, T] instance in VMEM; an SM has 227 KB of shared
-memory, so the CUDA kernel streams K/V tiles through shared memory with an
-online softmax and keeps scores out of device memory. It runs on CUDA-core
-FMAs, far above the bound; tensor cores are later work.
+memory, so the CUDA kernels stream K/V tiles through shared memory with an
+online softmax and keep scores out of device memory.
 
 The backward kernel (``csrc/attention_packed_bwd.cu``) replaces
-``_bwd_kernel_packed`` (reached through ``_fused_packed_bwd``); it computes the
-packed ``dqkv`` from qkv, out, lse and dout. At the decoder's block at the
-train batch (B=128, H=2, C=64, T=1024, bf16) that is 1.7e11 FLOP against
-270 MB, so its bound is the tensor-core rate too (≈0.17 ms); it runs on
-CUDA-core FMAs far above it. :func:`fused_attention_packed` ties the two
-together in a ``torch.autograd.Function``, as ``_fused_packed.defvjp`` does in
-the JAX package, saving ``(qkv, out, lse)`` as its residuals.
+``_bwd_kernel_packed`` (row 2, reached through ``_fused_packed_bwd``); it
+computes the packed ``dqkv`` from qkv, out, lse and dout. At the decoder's
+block at the train batch (B=128, H=2, C=64, T=1024, bf16) that is 1.7e11
+FLOP against 270 MB, so its bound is the tensor-core rate too (≈0.17 ms).
+:func:`fused_attention_packed` ties the two together in a
+``torch.autograd.Function``, as ``_fused_packed.defvjp`` does in the JAX
+package, saving ``(qkv, out, lse)`` as its residuals.
 
-Both kernels take every head dim C from 1 to 128 and every T ≥ 1: C a
-multiple of 8 runs a kernel built for that width, any other C one built for
-the next power of two with the tail dims masked. The JAX package's d % 8
-rule was a Mosaic lane rule of the TPU, not a rule of the function.
+In both libraries the dtype picks the kernel. bf16 runs on the tensor cores:
+the packed layout is the BTHD layout read through strides (q, k and v are
+the column blocks at 0, H·C and 2·H·C, all with token stride 3·H·C), so rows
+1 and 2 run the ``mma.sync`` kernels of rows 7 and 8
+(``csrc/attention_fwd_mma.cuh``, ``csrc/attention_bwd_mma.cuh``). f32 runs
+on CUDA-core FMAs (``csrc/attention_packed_fwd.cuh``,
+``attention_packed_bwd.cuh``), which keep f32 products exact where tensor
+cores would take TF32. Both take every head dim C from 1 to 128 and every
+T ≥ 1; the JAX package's d % 8 rule was a Mosaic lane rule of the TPU, not
+a rule of the function.
 
 The BTHD/BHTC forward kernel (``csrc/attention_bthd.cu``) replaces two TPU
 kernels with one source that reads the layout through strides:
@@ -44,9 +50,8 @@ it only for head dims whose lanes do not tile 128). Their backward kernels
 layer at the train batch (B=32) the backward is 1.72e11 FLOP against 268
 MB, bound by the tensor-core rate (≈0.17 ms). In both sources the dtype
 picks the kernel: bf16 runs on the tensor cores (``mma.sync`` in 64-row
-tiles, the flash-attention-2 design, ``csrc/mma_bf16.cuh``), f32 on
-CUDA-core FMAs, which keep f32 products exact where tensor cores would take
-TF32. :func:`fused_attention_bthd`,
+tiles, the flash-attention-2 design, the headers above on
+``csrc/mma_bf16.cuh``), f32 on CUDA-core FMAs. :func:`fused_attention_bthd`,
 :func:`fused_attention_bthd_dropout` and :func:`fused_attention` tie each
 forward to its backward in a ``torch.autograd.Function``, saving the
 residuals the JAX package's ``custom_vjp`` saves.
@@ -54,12 +59,12 @@ residuals the JAX package's ``custom_vjp`` saves.
 The fused attention block (``csrc/attention_block.cu``, row 5) replaces
 ``_block_fwd_kernel`` (reached through ``fused_attention_block``): the qkv
 projection x·W_qkv, the packed attention and the output projection attn·W_out
-in one call, as three launches (a tiled projection, row 1's device code, a
-tiled projection) through workspaces. Its backward
+in one call, as three launches (a tiled projection, row 1's CUDA-core
+device code, a tiled projection) through workspaces. Its backward
 (``csrc/attention_block_bwd.cu``, row 6) replaces ``_block_bwd_kernel``:
 it recomputes qkv and attn (from lse, P rounded as the TPU kernel rounds
-it), runs row 2's device code on (qkv, attn, lse, dAttn = dO·W_outᵀ) and
-the three remaining projections, and sums the weight
+it), runs row 2's CUDA-core device code on (qkv, attn, lse, dAttn =
+dO·W_outᵀ) and the three remaining projections, and sums the weight
 gradients over the batch in a fixed order, with no atomics. At the FFHQ128
 decoder's 32² block (B=64, T=1024, H=2, ch=64, C=128) the forward is
 4.3e10 FLOP against 34 MB and the backward at the train batch (B=128)
@@ -212,65 +217,78 @@ def _check_grid(b: int, n_heads: int):
         raise ValueError(f"attention kernel grid limit: batch {b}, heads {n_heads}")
 
 
-def _launch(qkv: torch.Tensor, n_heads: int, scale: float):
-    global launch_count
+def _uses_kernel(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; other devices raise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"no attention kernel for device {x.device}")
+
+
+def _check_same(x: torch.Tensor, like: torch.Tensor, ch: int, what: str):
+    """A contiguous kernel input of ``like``'s dtype and device that starts on
+    16 bytes where the kernels copy it in 16-byte chunks (head dims a
+    multiple of 8), so that no such copy reads a misaligned address."""
+    _check_kernel_input(x, ch, what)
+    if x.dtype != like.dtype or x.device != like.device:
+        raise ValueError(f"{what}: dtype and device must match the first input's")
+    if ch % 8 == 0 and x.data_ptr() % 16:
+        raise ValueError(f"{what}: the attention kernel needs 16-byte aligned tensors")
+
+
+def _check_lse(lse: torch.Tensor, shape, like: torch.Tensor):
+    if (tuple(lse.shape) != tuple(shape) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != like.device):
+        raise ValueError(f"lse must be a contiguous f32 {tuple(shape)} on the inputs' device")
+
+
+def _call(library: str, symbol: str, argtypes, args, device):
     from ot_vae_tpu_torch.ops._build import load_library
 
+    fn = getattr(load_library(library), symbol)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+
+
+def _launch(qkv: torch.Tensor, n_heads: int, scale: float):
+    global launch_count
     b, t, width = qkv.shape
     ch = _split(width, n_heads)
-    _check_kernel_input(qkv, ch, "qkv")
-    if qkv.data_ptr() % 16:
-        raise ValueError("attention kernel needs a 16-byte aligned qkv")
+    _check_same(qkv, qkv, ch, "qkv")
     _check_grid(b, n_heads)
-    lib = load_library("attention_packed")
-    fn = lib.attention_packed_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((b, t, n_heads * ch), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, t, n_heads), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, n_heads,
-                 ch, float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"attention_packed_fwd launch failed: cudaError {err}")
+    _call("attention_packed", "attention_packed_fwd",
+          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int],
+          [qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, n_heads, ch, float(scale),
+           _DTYPE_CODES[qkv.dtype]], qkv.device)
     launch_count += 1
     return out, lse
 
 
 def _launch_backward(qkv, out, lse, dout, n_heads: int, scale: float):
     global backward_launch_count
-    from ot_vae_tpu_torch.ops._build import load_library
-
     b, t, width = qkv.shape
     ch = _split(width, n_heads)
     for x, what in ((qkv, "qkv"), (out, "out"), (dout, "dout")):
-        _check_kernel_input(x, ch, what)
-        if x.dtype != qkv.dtype or x.device != qkv.device:
-            raise ValueError(f"{what}: dtype and device must match qkv's")
+        _check_same(x, qkv, ch, what)
     if out.shape != (b, t, n_heads * ch) or dout.shape != out.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} "
                          f"must be [B, T, H·C] = {(b, t, n_heads * ch)}")
-    if (lse.shape != (b, t, n_heads) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != qkv.device):
-        raise ValueError("lse must be a contiguous f32 [B, T, H] on qkv's device")
+    _check_lse(lse, (b, t, n_heads), qkv)
     _check_grid(b, n_heads)
-    lib = load_library("attention_packed_bwd")
-    fn = lib.attention_packed_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, t, n_heads), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                 dqkv.data_ptr(), delta.data_ptr(), b, t, n_heads, ch, float(scale),
-                 _DTYPE_CODES[qkv.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"attention_packed_bwd launch failed: cudaError {err}")
+    _call("attention_packed_bwd", "attention_packed_bwd",
+          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int],
+          [qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+           delta.data_ptr(), b, t, n_heads, ch, float(scale), _DTYPE_CODES[qkv.dtype]],
+          qkv.device)
     backward_launch_count += 1
     return dqkv
 
@@ -292,11 +310,9 @@ def attention_packed(
     :return: out [B, T, H·C] in qkv's dtype, lse [B, T, H] f32
     """
     scale = _check_qkv(qkv, n_heads, scale)
-    if qkv.device.type == "cpu":
-        return attention_packed_reference(qkv, n_heads, scale)
-    if qkv.device.type == "cuda":
+    if _uses_kernel(qkv):
         return _launch(qkv, n_heads, scale)
-    raise ValueError(f"no attention kernel for device {qkv.device}")
+    return attention_packed_reference(qkv, n_heads, scale)
 
 
 def attention_packed_backward(
@@ -306,11 +322,9 @@ def attention_packed_backward(
     """dqkv [B, T, 3·H·C] of :func:`attention_packed` from its residuals and
     the output's gradient ``dout``."""
     scale = _check_qkv(qkv, n_heads, scale)
-    if qkv.device.type == "cpu":
-        return attention_packed_backward_reference(qkv, out, lse, dout, n_heads, scale)
-    if qkv.device.type == "cuda":
+    if _uses_kernel(qkv):
         return _launch_backward(qkv, out, lse, dout, n_heads, scale)
-    raise ValueError(f"no attention kernel for device {qkv.device}")
+    return attention_packed_backward_reference(qkv, out, lse, dout, n_heads, scale)
 
 
 class _FusedAttentionPacked(torch.autograd.Function):
@@ -493,41 +507,6 @@ def attention_bhtc_backward_reference(q, k, v, out, lse, dout, scale: float):
     """
     b, h, t, _ = q.shape
     return _attention_heads_backward(q, k, v, out, lse.reshape(b, h, t), dout, scale)
-
-
-def _uses_kernel(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; other devices raise."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type == "cuda":
-        return True
-    raise ValueError(f"no attention kernel for device {x.device}")
-
-
-def _check_same(x: torch.Tensor, like: torch.Tensor, ch: int, what: str):
-    _check_kernel_input(x, ch, what)
-    if x.dtype != like.dtype or x.device != like.device:
-        raise ValueError(f"{what}: dtype and device must match q's")
-    if ch % 8 == 0 and x.data_ptr() % 16:
-        raise ValueError(f"{what}: the attention kernel needs 16-byte aligned tensors")
-
-
-def _check_lse(lse: torch.Tensor, shape, like: torch.Tensor):
-    if (tuple(lse.shape) != tuple(shape) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != like.device):
-        raise ValueError(f"lse must be a contiguous f32 {tuple(shape)} on q's device")
-
-
-def _call(library: str, symbol: str, argtypes, args, device):
-    from ot_vae_tpu_torch.ops._build import load_library
-
-    fn = getattr(load_library(library), symbol)
-    fn.argtypes = argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
 
 
 def _launch_bthd(q, k, v, n_heads: int, scale: float, causal: bool, mult):

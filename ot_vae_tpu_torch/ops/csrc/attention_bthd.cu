@@ -35,45 +35,8 @@
 //     tensor cores would buy it nothing. This is a choice of arithmetic, not
 //     a size threshold.
 //
-// bf16 design (attention_fwd_mma):
-//   - grid (query tile, head, batch); a block is 4 warps and 128 query
-//     rows, two 16-row m-tiles a warp (rows 16w.. and 64 + 16w..), so every
-//     K and V fragment that ldmatrix reads feeds two products. The Q tile
-//     is copied once and stays in shared memory, its A fragments read by
-//     ldmatrix at each step. One m-tile a warp (64 rows a block) measured
-//     slower (PERF.md).
-//   - K and V tiles of 64 keys x d are held in bf16 in shared memory, rows
-//     padded by 16 bytes (no ldmatrix bank conflict), in two stages filled by
-//     cp.async while the other stage is consumed; rows past Tk are
-//     zero-filled.
-//   - S = Q K^T on the tensor cores (B fragments of K by ldmatrix); the
-//     online softmax runs in f32 on the accumulator fragments, the row max
-//     and sum over the 4 lanes of a quad, with exp2f and scale*log2(e)
-//     folded into one multiply. Causal: key tiles wholly above the block's
-//     last row are skipped, the diagonal tiles masked entry by entry (an
-//     m-tile's tile wholly above its own rows is then all masked); keys
-//     past Tk are masked.
-//   - the multiplier is read for each fragment's own entries from the one
-//     [Tq, Tk] tensor, which L2 holds for every batch element and head.
-//   - P o mult is rounded to bf16 and packed in registers straight into the
-//     A fragments of P V (B fragments of V by ldmatrix.trans): the products'
-//     inputs are exactly the bf16 operands the TPU kernel rounds to. As in
-//     the f32 kernel, P here is the running maximum's unnormalised P: the
-//     rounding is the same size as the TPU kernel's, not the same bits.
-//     O accumulates in f32 and is divided once by the f32 sum of the
-//     unrounded P: out = acc / l, lse = m + log(l). Output rows go through
-//     the warp's own rows of the Q tile to 16-byte stores.
-//   - head dims: every d from 1 to 128. The tiles are built for d rounded
-//     up to a multiple of 16 (16, 32, ..., 128) and the dims past d are
-//     zero. A d that is a multiple of 8 with 16-byte aligned tensors copies
-//     16-byte chunks with cp.async; any other d (or an unaligned tensor)
-//     copies through masked scalar loads.
-//   - budget at d = 128: 6 tiles of 64 x 136 bf16 (Q twice, K and V twice
-//     each) = 104,448 bytes of dynamic shared memory (the opt-in limit is
-//     set at launch), so two blocks share an SM (227 KB). Two blocks of 128
-//     threads allow 255 registers a thread: the f32 accumulators take 192
-//     of them (O, 2 x 64; S, 2 x 32) and the d = 128 build reaches 255 and
-//     spills 64 bytes (ptxas -v, PERF.md).
+// bf16 design: attention_fwd_mma.cuh, whose kernel attention_packed.cu
+// (row 1) runs too, on the packed layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,7 +44,7 @@
 #include <cmath>
 #include <cstdint>
 
-#include "mma_bf16.cuh"
+#include "attention_fwd_mma.cuh"
 
 namespace {
 
@@ -132,14 +95,8 @@ __device__ __forceinline__ float round_to(float x, float) { return x; }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
-// element (b, h, t, 0) of a tensor with these strides
-struct Strides {
-  int64_t b, h, t;
-};
-
-__device__ __forceinline__ int64_t offset(const Strides& s, int b, int h, int t) {
-  return b * s.b + h * s.h + t * s.t;
-}
+using mma::offset;
+using mma::Strides;
 
 // C is the width the kernel is built for; `ch` the head dim of the tensors,
 // equal to C unless kTail (then ch <= C, and the dims past ch are masked).
@@ -309,15 +266,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (part == 0) lse[(static_cast<int64_t>(b) * heads + h) * tq + row] = m + logf(l);
 }
 
-struct Args {
-  const void *q, *k, *v, *mult;
-  void* out;
-  float* lse;
-  int batch, tq, tk, heads, head_dim;
-  float scale;
-  int causal;
-  Strides sq, skv;
-};
+// the f32 kernel takes the bf16 kernel's arguments: out through q's strides
+// and lse [B, H, Tq]
+using Args = mma::FwdArgs;
 
 template <typename T, int C, bool kTail>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
@@ -357,238 +308,13 @@ cudaError_t dispatch_f32(const Args& a, cudaStream_t stream) {
 #undef CASE
 }
 
-// ---- bf16: tensor cores (mma.sync) -----------------------------------------
-
-// 16-row m-tiles each warp owns, so a block holds kM * 64 query rows: two
-// reuse every K and V fragment that ldmatrix reads for two products, and
-// ran faster on an H100 than one, though at d = 128 the build spills
-// (PERF.md)
-constexpr int kM = 2;
-
-// dynamic shared memory of attention_fwd_mma: kM Q tiles, then K and V tiles
-// in two stages each
-template <int C>
-constexpr int fwd_smem_bytes() {
-  return (kM + 4) * mma::Tile<C>::kBytes;
-}
-
-// C: the tiles' head dims, d rounded up to a multiple of 16 (a.head_dim <= C)
-template <int C>
-__global__ void __launch_bounds__(mma::kThreads, 2) attention_fwd_mma(Args a, bool vec) {
-  using namespace mma;
-  constexpr int S = Tile<C>::kStride;
-  constexpr int kSteps = C / 16;  // 16-deep steps over the head dims
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);  // kM tiles
-  bf16* sk = sq + kM * Tile<C>::kElems;      // two stages
-  bf16* sv = sk + 2 * Tile<C>::kElems;
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kM * kTileRows;
-  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's first row in each Q tile
-  int rows[kM][2];                           // this lane's query rows
-#pragma unroll
-  for (int mi = 0; mi < kM; ++mi) {
-    rows[mi][0] = row0 + mi * kTileRows + wrow + g;
-    rows[mi][1] = rows[mi][0] + 8;
-  }
-  const int cw = a.head_dim;
-  const bf16* q = static_cast<const bf16*>(a.q) + offset(a.sq, b, h, 0);
-  const bf16* k = static_cast<const bf16*>(a.k) + offset(a.skv, b, h, 0);
-  const bf16* v = static_cast<const bf16*>(a.v) + offset(a.skv, b, h, 0);
-  const bf16* mult = static_cast<const bf16*>(a.mult);
-  const float sl2 = a.scale * kLog2e;
-
-  // causal: the block's last row sees keys up to itself, none past it
-  const int key_end = a.causal ? min(a.tk, row0 + kM * kTileRows) : a.tk;
-  const int n_tiles = (key_end + kTileRows - 1) / kTileRows;
-
-#pragma unroll
-  for (int mi = 0; mi < kM; ++mi)
-    load_tile<C>(sq + mi * Tile<C>::kElems, q, a.sq.t, row0 + mi * kTileRows, a.tq, cw, vec);
-  load_tile<C>(sk, k, a.skv.t, 0, a.tk, cw, vec);
-  load_tile<C>(sv, v, a.skv.t, 0, a.tk, cw, vec);
-  cp_async_commit();
-
-  float o[kM][C / 8][4];
-#pragma unroll
-  for (int mi = 0; mi < kM; ++mi)
-#pragma unroll
-    for (int j = 0; j < C / 8; ++j) o[mi][j][0] = o[mi][j][1] = o[mi][j][2] = o[mi][j][3] = 0.f;
-  float m[kM][2];  // running row max of s*scale*log2(e)
-  float l[kM][2];  // this lane's part of the running row sum
-#pragma unroll
-  for (int mi = 0; mi < kM; ++mi) {
-    m[mi][0] = m[mi][1] = -INFINITY;
-    l[mi][0] = l[mi][1] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < n_tiles) {
-      const int next = (stage ^ 1) * Tile<C>::kElems;
-      load_tile<C>(sk + next, k, a.skv.t, (kt + 1) * kTileRows, a.tk, cw, vec);
-      load_tile<C>(sv + next, v, a.skv.t, (kt + 1) * kTileRows, a.tk, cw, vec);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and, first, Q) has landed
-    __syncthreads();
-    const bf16* ck = sk + stage * Tile<C>::kElems;
-    const bf16* cv = sv + stage * Tile<C>::kElems;
-    const int k0 = kt * kTileRows;
-
-    float s[kM][8][4];
-#pragma unroll
-    for (int mi = 0; mi < kM; ++mi)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[mi][j][0] = s[mi][j][1] = s[mi][j][2] = s[mi][j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      uint32_t qf[kM][4];
-#pragma unroll
-      for (int mi = 0; mi < kM; ++mi)
-        load_a(qf[mi], sq + mi * Tile<C>::kElems + wrow * S, S, ks * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4];
-        load_b_rows(kb, ck + np * 16 * S, S, ks * 16, lane);
-#pragma unroll
-        for (int mi = 0; mi < kM; ++mi) {
-          mma_16816(s[mi][2 * np], qf[mi], kb[0], kb[1]);
-          mma_16816(s[mi][2 * np + 1], qf[mi], kb[2], kb[3]);
-        }
-      }
-    }
-
-    // mask past Tk and above the diagonal (only where the tile reaches them),
-    // then the new row max and the rescaled sums and accumulators
-    float base[kM][2];
-#pragma unroll
-    for (int mi = 0; mi < kM; ++mi) {
-      const bool edge = k0 + kTileRows > a.tk ||
-                        (a.causal && k0 + kTileRows - 1 > row0 + mi * kTileRows + wrow);
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[mi][j][e] * sl2;
-          if (edge) {
-            const int key = k0 + j * 8 + 2 * t + (e & 1);
-            if (key >= a.tk || (a.causal && key > rows[mi][e >> 1])) x = -INFINITY;
-          }
-          s[mi][j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m[mi][i], quad_max(mx[i]));
-        // a row that has seen only masked keys keeps m = -inf; exp2(-inf) = 0
-        base[mi][i] = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = exp2f(m[mi][i] - base[mi][i]);
-        l[mi][i] *= alpha;
-#pragma unroll
-        for (int j = 0; j < C / 8; ++j) {
-          o[mi][j][2 * i] *= alpha;
-          o[mi][j][2 * i + 1] *= alpha;
-        }
-        m[mi][i] = m_new;
-      }
-    }
-
-    // P (times mult) rounded to bf16: the A fragments of P V, 16 keys a step
-    uint32_t pa[kM][4][4];
-#pragma unroll
-    for (int mi = 0; mi < kM; ++mi) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[e] = exp2f(s[mi][j][e] - base[mi][e >> 1]);
-          l[mi][e >> 1] += p[e];
-        }
-        if (mult != nullptr) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = k0 + j * 8 + 2 * t + (e & 1);
-            const int row = rows[mi][e >> 1];
-            p[e] *= row < a.tq && key < a.tk
-                        ? __bfloat162float(mult[static_cast<int64_t>(row) * a.tk + key])
-                        : 0.f;
-          }
-        }
-        pa[mi][j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-        pa[mi][j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < kSteps; ++dp) {
-        uint32_t vb[4];
-        load_b_trans(vb, cv + kk * 16 * S, S, dp * 16, lane);
-#pragma unroll
-        for (int mi = 0; mi < kM; ++mi) {
-          mma_16816(o[mi][2 * dp], pa[mi][kk], vb[0], vb[1]);
-          mma_16816(o[mi][2 * dp + 1], pa[mi][kk], vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();  // this stage is consumed before the next fill
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < kM; ++mi) {
-    float inv[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[mi][i] = quad_sum(l[mi][i]);
-      inv[i] = 1.f / l[mi][i];
-    }
-    // out through the warp's own rows of the Q tile, to 16-byte stores
-    bf16* rows_q = sq + mi * Tile<C>::kElems + wrow * S;
-    stage_rows<C>(rows_q, S, o[mi], inv[0], inv[1], lane);
-    __syncwarp();
-    store_rows<C>(static_cast<bf16*>(a.out) + offset(a.sq, b, h, 0), a.sq.t, rows_q,
-                  row0 + mi * kTileRows + wrow, a.tq, cw, vec, lane);
-    if (t == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (rows[mi][i] < a.tq)
-          a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.tq + rows[mi][i]] =
-              (m[mi][i] + log2f(l[mi][i])) * kLn2;
-    }
-  }
-}
-
-template <int C>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr int kBytes = fwd_smem_bytes<C>();
-  static const cudaError_t smem_err = mma::allow_smem(attention_fwd_mma<C>, kBytes);
-  if (smem_err != cudaSuccess) return smem_err;
-  const bool vec = a.head_dim % 8 == 0 && mma::aligned16(a.q) && mma::aligned16(a.k) &&
-                   mma::aligned16(a.v) && mma::aligned16(a.out);
-  constexpr int kRows = kM * mma::kTileRows;
-  const dim3 grid((a.tq + kRows - 1) / kRows, a.heads, a.batch);
-  attention_fwd_mma<C><<<grid, mma::kThreads, kBytes, stream>>>(a, vec);
-  return cudaGetLastError();
-}
-
 cudaError_t run(Args a, int dtype, void* stream) {
   if (a.batch < 1 || a.tq < 1 || a.tk < 1 || a.heads < 1 || a.batch > 65535 ||
       a.heads > 65535 || (a.causal && a.tq != a.tk) || a.head_dim < 1 || a.head_dim > 128)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(a, s);
-  if (dtype == 1)
-    return mma::dispatch(a.head_dim,
-                         [&](auto c) { return launch_mma<decltype(c)::value>(a, s); });
+  if (dtype == 1) return mma::run_fwd<false>(a, s);
   return cudaErrorInvalidValue;
 }
 

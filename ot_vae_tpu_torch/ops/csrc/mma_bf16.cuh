@@ -1,11 +1,16 @@
-// bf16 tensor-core building blocks of the BTHD attention kernels
-// (attention_bthd.cu, attention_bthd_bwd.cu), for Hopper (sm_90a) through
-// the Ampere-era warp-level instructions:
+// bf16 tensor-core building blocks of the attention kernels
+// (attention_fwd_mma.cuh, attention_bwd_mma.cuh, which attention_bthd.cu,
+// attention_bthd_bwd.cu, attention_packed.cu and attention_packed_bwd.cu
+// include), for Hopper (sm_90a) through the Ampere-era warp-level
+// instructions:
 //   - cp.async 16-byte copies from device to shared memory (zero-filled past
 //     a tile's valid rows and head dims), committed and waited on in groups;
 //   - ldmatrix (plain and .trans) of 8x8 b16 matrices from shared memory;
 //   - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands,
 //     f32 accumulation.
+// Operands are addressed through (batch, head, token) strides (`Strides`),
+// and the tile copies take the token stride of the operand they copy and
+// whether it moves in 16-byte chunks.
 // A tile is kTileRows token rows of one head, C head dims (a multiple of 16,
 // the tensors' own head dim zero-padded up to it), stored with a row stride
 // of C + 8 elements: 16 bytes of padding make the stride an odd number of
@@ -37,6 +42,15 @@ constexpr int kTileRows = 64;  // token rows of every shared-memory tile
 constexpr int kThreads = 128;  // 4 warps, 16 rows of a 64-row tile each
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// element (b, h, t, 0) of a tensor with these strides, in elements
+struct Strides {
+  int64_t b, h, t;
+};
+
+__host__ __device__ __forceinline__ int64_t offset(const Strides& s, int b, int h, int t) {
+  return b * s.b + h * s.h + t * s.t;
+}
 
 template <int C>
 struct Tile {

@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Resources and tensor-core use of the BTHD attention kernels (rows 7, 3, 8
-and 4) on the card.
+"""Resources and tensor-core use of the attention kernels that run bf16 on
+the tensor cores: the BTHD/BHTC kernels (rows 7, 3, 8 and 4) and the packed
+ones (rows 1 and 2), on the card.
 
     python scripts/bthd_kernel_report.py
 
-Builds ``csrc/attention_bthd.cu`` and ``csrc/attention_bthd_bwd.cu`` with the
-port's nvcc flags plus ``-Xptxas -v`` into ``build/kernel_report/`` and
-prints, for every bf16 instantiation (``*_mma<C>``, C the head dims padded to
-a multiple of 16), its registers and spill stores and loads, and the number
-of ``HMMA`` instructions in its SASS (``cuobjdump -sass``); the f32
-CUDA-core kernels' HMMA count too (none expected). The bf16 kernels' shared
-memory is dynamic, set at launch: the sources' header notes state its budget.
+Builds ``csrc/attention_bthd.cu``, ``attention_bthd_bwd.cu``,
+``attention_packed.cu`` and ``attention_packed_bwd.cu`` with the port's nvcc
+flags plus ``-Xptxas -v`` into ``build/kernel_report/`` and prints, for every
+bf16 instantiation in each library (``attention_fwd_mma<C>``,
+``attention_dq_mma<C>``, ``attention_dkdv_mma<C>``, C the head dims padded
+to a multiple of 16; the forward's layout flag is fixed per library), its
+registers, its spill stores and loads, and the number of ``HMMA``
+instructions in its SASS (``cuobjdump -sass``); and the HMMA count of each
+library's f32 CUDA-core kernels, which must be 0 (the packed libraries hold
+no bf16 CUDA-core kernel: their bf16 calls all run the ``*_mma`` kernels).
+The bf16 kernels' shared memory is dynamic, set at launch: the headers'
+notes (``attention_fwd_mma.cuh``, ``attention_bwd_mma.cuh``) state its
+budget.
 
 Prints the card's name and power limit first and a JSON line of the numbers
 last. Needs the CUDA toolkit and one card.
@@ -90,24 +97,27 @@ def main(argv=None) -> int:
     nvcc = _build._nvcc()
     cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).with_name("cuobjdump"))
     OUT.mkdir(parents=True, exist_ok=True)
-    report = {"kernels": []}
-    for stem in ("attention_bthd", "attention_bthd_bwd"):
+    report = {"kernels": [], "f32_hmma": {}}
+    for stem in ("attention_bthd", "attention_bthd_bwd", "attention_packed",
+                 "attention_packed_bwd"):
         target = OUT / f"{stem}.so"
         log = build(nvcc, _build.NVCC_FLAGS, _build.SOURCE_DIR / f"{stem}.cu", target)
         hmma = hmma_counts(cuobjdump, target)
-        f32_hmma = sum(n for k, n in hmma.items() if readable(k) is None)
+        f32 = [k for k in hmma if readable(k) is None]
         for mangled, (regs, stores, loads) in sorted(
                 resources(log).items(), key=lambda kv: readable(kv[0]) or ("", 0)):
             name = readable(mangled)
             if name is None:
                 continue
-            row = {"kernel": name[0], "C": name[1], "registers": regs,
+            row = {"library": stem, "kernel": name[0], "C": name[1], "registers": regs,
                    "spill_stores": stores, "spill_loads": loads,
                    "hmma": hmma.get(mangled, 0)}
             report["kernels"].append(row)
             print(f"{target.name}: {name[0]}<{name[1]}>: {regs} registers, spill "
                   f"{stores}/{loads} bytes, {row['hmma']} HMMA", flush=True)
-        print(f"{target.name}: f32 CUDA-core kernels: {f32_hmma} HMMA", flush=True)
+        report["f32_hmma"][stem] = sum(hmma[k] for k in f32)
+        print(f"{target.name}: {len(f32)} f32 CUDA-core kernels: "
+              f"{report['f32_hmma'][stem]} HMMA", flush=True)
     print(json.dumps(report))
     return 0
 
