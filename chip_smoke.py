@@ -121,10 +121,11 @@ toolkit. Phases, each printing one line:
    versions at the FFHQ128 model's six blocks (forward at B=64, backward at
    the train batch of 128), the MNIST32 attention shapes, a ragged shape
    with C, H·ch and C_out all different and one head of 128 dims, bf16 and
-   f32; row 6 twice on the same inputs, bit for bit; their times in bf16
-   at the decoder's 32² and the encoder's 16² block beside the bound, the
-   plain versions and two yardsticks (the port's unfused block, and
-   matmul + SDPA + matmul);
+   f32, and in bf16 the tensor-core kernels' tile and alignment edges
+   (BLOCK_TILE_SHAPES); row 6 twice on the same inputs, bit for bit; their
+   times in bf16 at the decoder's 32² and the encoder's 16² block beside
+   the bound (and its share), the plain versions and two yardsticks (the
+   port's unfused block, and matmul + SDPA + matmul);
 23. serve the FFHQ128 CNN VAE with fused_block=True (bf16, buckets 1, 8,
    64): 6 row-5 launches per reconstruct, 3 per encode, decode and sample,
    no launch of any other kernel; img/s per endpoint at bucket 64 beside
@@ -390,6 +391,25 @@ BLOCK_SHAPES = ([(t, h, HEAD_DIM, h * HEAD_DIM, h * HEAD_DIM, BATCH, TRAIN_BATCH
                 + [(t, h, c, h * c, h * c, SMALL_ATTN_BATCH, SMALL_ATTN_BATCH)
                    for t, h, c in SMALL_ATTN_SHAPES]
                 + [(37, 3, 8, 24, 40, 16, 16), (100, 1, 128, 128, 128, 16, 16)])
+# bf16 rows 5 and 6 run their projections on the tensor cores in 128 x 128
+# tiles of C, 32 deep (qkv in 64 x 64 tiles, 16 deep), and their attention
+# in 64-row tiles with head dims padded to a multiple of 16; all copy a
+# tile by cp.async where its rows start on 16 bytes and by masked scalar
+# loads otherwise. These (T, H, ch, C, C_out, batch of the forward check,
+# batch of the backward check, weights as the model's transposed views)
+# cross those edges, in bf16 only
+# (f32 keeps the CUDA-core kernels): T = 1000 and 65 at ch = 64 (ragged
+# across 64-row tiles and across the GEMMs' 128-row tiles), ch = 16, 48 and
+# 128, ch = 13 with H = 3 (H·ch = 39: qkv, attn and their head columns off
+# 16 bytes), and C, H·ch and C_out all different and no multiple of 16 (C
+# = 40 and C_out = 24 copied in chunks, C = 37 and C_out = 29 by scalar
+# loads), in both weight layouts, and C = H·ch = C_out = 48 at T = 130 (the
+# CPU test's ch = 48 shape, which takes C = 16 there). They take
+# BLOCK_SHAPES' gates, and row 6 repeats bit for bit.
+BLOCK_TILE_SHAPES = [(1000, 2, 64, 128, 128, 8, 8, True), (65, 2, 64, 128, 128, 16, 16, False),
+                     (100, 2, 16, 32, 32, 16, 16, True), (100, 2, 48, 96, 96, 16, 16, False),
+                     (100, 1, 128, 128, 128, 8, 8, True), (130, 3, 13, 40, 24, 16, 16, False),
+                     (77, 2, 24, 37, 29, 8, 8, True), (130, 1, 48, 48, 48, 16, 16, True)]
 
 class CheckFailed(Exception):
     pass
@@ -2004,23 +2024,28 @@ def _block_bound(b, t, h, ch, c, c_out, backward: bool):
 
 def phase_block(attention):
     """Rows 5 and 6 against their plain versions at BLOCK_SHAPES, bf16 and
-    f32, row 6 bit for bit on a second run; their times in bf16 at the
-    FFHQ128 decoder's 32² block and the 16² encoder block, beside the bound,
-    the plain versions and two yardsticks: the port's unfused block (two 1×1
-    convs around row 1, or their backward around row 2) and matmul + SDPA +
-    matmul (PyTorch's library calls)."""
+    f32, and in bf16 at BLOCK_TILE_SHAPES, row 6 bit for bit on a second
+    run; their times in bf16 at the FFHQ128 decoder's 32² block and the 16²
+    encoder block, beside the bound, the plain versions and two yardsticks:
+    the port's unfused block (two 1×1 convs around row 1, or their backward
+    around row 2) and matmul + SDPA + matmul (PyTorch's library calls)."""
     from ot_vae_tpu_torch.networks.cnn import AttentionBlock
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(8642)
     worst = {"fwd": 0.0, "bwd": 0.0}
+    # the path's weights are the convs' transposed views; the two ragged
+    # shapes take the JAX package's contiguous layout
+    shapes = [(*s, i < len(BLOCK_SHAPES) - 2) for i, s in enumerate(BLOCK_SHAPES)]
+    repeats = 0
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        for i, (t, h, ch, c, c_out, b_fwd, b_bwd) in enumerate(BLOCK_SHAPES):
+        for t, h, ch, c, c_out, b_fwd, b_bwd, transposed in shapes + (
+                BLOCK_TILE_SHAPES if dtype == torch.bfloat16 else []):
             scale = 1.0 / math.sqrt(ch)
-            transposed = i < len(BLOCK_SHAPES) - 2
-            shape = f"T={t} H={h} ch={ch} C={c} C_out={c_out}"
+            shape = (f"T={t} H={h} ch={ch} C={c} C_out={c_out} "
+                     f"{'transposed' if transposed else 'contiguous'} weights")
             x, wq, wo, _ = _block_inputs(gen, b_fwd, t, h, ch, c, c_out, dtype, transposed)
             out, lse = attention.attention_block(x, wq, wo, h, scale)
             torch.cuda.synchronize()
@@ -2049,6 +2074,7 @@ def phase_block(attention):
             torch.cuda.synchronize()
             check(all(torch.equal(g, a) for g, a in zip(grads, again)),
                   f"block backward {name} {shape}: two runs differ")
+            repeats += 1
             check(all(g.shape == w.shape and (min(w.shape) == 1 or g.stride() == w.stride())
                       for g, w in ((grads[1], wq), (grads[2], wo))),
                   f"block backward {name} {shape}: weight gradients not in the weights' "
@@ -2074,6 +2100,7 @@ def phase_block(attention):
             if dtype == torch.bfloat16:
                 worst["bwd"] = max(worst["bwd"], max(errs))
             del x, wq, wo, dout, lse, grads, again, refs
+    print(f"block backward: {repeats} checks repeated bit for bit", flush=True)
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2132,9 +2159,9 @@ def phase_block(attention):
             timings[(kind, t, h)] = row
             print(f"block {'backward ' if kind == 'bwd' else ''}time bf16 B={b} T={t} H={h} "
                   f"ch={ch} C={c}: kernel {row['ms']:.4f} ms, bound {bound:.4f} ms "
-                  f"({bound_by}; {flops:.3e} FLOP, {n_bytes / 1e6:.1f} MB), plain "
-                  f"{row['plain_ms']:.4f} ms, library: no single PyTorch call; "
-                  f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+                  f"({bound_by}; {flops:.3e} FLOP, {n_bytes / 1e6:.1f} MB; share "
+                  f"{bound / row['ms']:.4f}), plain {row['plain_ms']:.4f} ms, library: no "
+                  f"single PyTorch call; {flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
             print(f"block {kind} yardsticks bf16 B={b} T={t} H={h}: the port's unfused block "
                   f"(1x1 convs around row {1 if kind == 'fwd' else 2}) "
                   f"{row['unfused_ms']:.4f} ms; matmul + SDPA + matmul "

@@ -59,19 +59,26 @@ residuals the JAX package's ``custom_vjp`` saves.
 The fused attention block (``csrc/attention_block.cu``, row 5) replaces
 ``_block_fwd_kernel`` (reached through ``fused_attention_block``): the qkv
 projection x·W_qkv, the packed attention and the output projection attn·W_out
-in one call, as three launches (a tiled projection, row 1's CUDA-core
-device code, a tiled projection) through workspaces. Its backward
+in one call, through workspaces. Its backward
 (``csrc/attention_block_bwd.cu``, row 6) replaces ``_block_bwd_kernel``:
 it recomputes qkv and attn (from lse, P rounded as the TPU kernel rounds
-it), runs row 2's CUDA-core device code on (qkv, attn, lse, dAttn =
+it), runs the packed attention backward on (qkv, attn, lse, dAttn =
 dO·W_outᵀ) and the three remaining projections, and sums the weight
-gradients over the batch in a fixed order, with no atomics. At the FFHQ128
-decoder's 32² block (B=64, T=1024, H=2, ch=64, C=128) the forward is
-4.3e10 FLOP against 34 MB and the backward at the train batch (B=128)
-2.1e11 FLOP against about 100 MB: both are bound by the tensor-core rate
-(0.043 and 0.21 ms) and run on CUDA-core FMAs far above it.
-:func:`fused_attention_block` ties them together in a
-``torch.autograd.Function`` saving the JAX package's residuals
+gradients over the batch in fixed ranges added in order, with no atomics.
+In both libraries the dtype picks the kernels, as in rows 1 and 2. bf16
+runs on the tensor cores throughout: the f32 weights are rounded to bf16
+once per call into a workspace; qkv is summed exactly on the FP64 tensor
+cores and rounded once to f32, then to bf16, as the plain version's exact
+sum rounds it (:func:`_project_qkv`), so that lse does not hang on the
+order of the sum; the other projections and the weight gradients run a
+bf16 ``mma.sync`` GEMM (``csrc/block_gemm.cuh``); the attention runs rows
+1 and 2's kernels on the qkv workspace, and the backward's attention output
+is recomputed from lse on ``mma.sync`` too. f32 runs on CUDA-core FMAs. At
+the FFHQ128 decoder's 32² block (B=64, T=1024, H=2, ch=64, C=128) the
+forward is 4.3e10 FLOP against 34 MB and the backward at the train batch
+(B=128) 2.1e11 FLOP against about 100 MB: both are bound by the tensor-core
+rate (0.043 and 0.21 ms). :func:`fused_attention_block` ties them together
+in a ``torch.autograd.Function`` saving the JAX package's residuals
 (x, W_qkv, W_out, lse).
 
 A CPU tensor takes the plain versions (:func:`attention_packed_reference`,
@@ -761,6 +768,19 @@ def _block_operands(x, w_qkv, w_out):
     return acc, w_qkv.to(x.dtype).to(acc), w_out.to(x.dtype).to(acc)
 
 
+def _project_qkv(x, wq, acc):
+    """qkv = x·W_qkv rounded to x's dtype, W_qkv already rounded to it. For
+    f32 and f64 the sum runs in ``acc``. For bf16 it is taken exactly (in
+    f64: every product of two bf16 values is exact there, and so is every
+    partial sum of these depths), rounded to f32 and then to bf16: the
+    correctly rounded f32 accumulation, which the row-5 and row-6 kernels
+    reach too (they sum on the FP64 tensor cores), so that an entry of qkv
+    rounds to the same bf16 value whatever the order of the sum."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.matmul(x.to(acc), wq).to(x.dtype)
+    return torch.matmul(x.double(), wq.double()).float().to(x.dtype)
+
+
 def attention_block_reference(x, w_qkv, w_out, n_heads: int,
                               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the row-5 kernel, step for step as
@@ -769,7 +789,8 @@ def attention_block_reference(x, w_qkv, w_out, n_heads: int,
     dtype; per head softmax(scale·QKᵀ) with P normalised and rounded to v's
     dtype before P·V, attn_h rounded to x's dtype
     (:func:`attention_packed_reference`); out = Σ_h attn_h·W_out[h] in f32,
-    rounded to x's dtype.
+    rounded to x's dtype. In bf16 the qkv sum is the correctly rounded f32
+    one (:func:`_project_qkv`).
 
     :param x: [B, T, C] the normalized block input
     :param w_qkv: [C, 3·H·ch] (q | k | v columns); w_out: [H·ch, C_out]
@@ -777,7 +798,7 @@ def attention_block_reference(x, w_qkv, w_out, n_heads: int,
         input)
     """
     acc, wq, wo = _block_operands(x, w_qkv, w_out)
-    qkv = torch.matmul(x.to(acc), wq).to(x.dtype)
+    qkv = _project_qkv(x, wq, acc)
     attn, lse = attention_packed_reference(qkv, n_heads, scale)
     return torch.matmul(attn.to(acc), wo).to(x.dtype), lse
 
@@ -786,8 +807,9 @@ def attention_block_backward_reference(x, w_qkv, w_out, lse, dout, n_heads: int,
                                        scale: float):
     """Plain PyTorch version of the row-6 kernel, step for step as
     ``_block_bwd_kernel`` (``attention_pallas.py:481-553``): qkv recomputed
-    and rounded; P = exp(scale·QKᵀ − lse) and attn_h = P(rounded to v's
-    dtype)·V rounded to x's dtype; dW_out = Σ attnᵀ·dO; dAttn = dO·W_outᵀ
+    and rounded, as the forward (:func:`_project_qkv`); P = exp(scale·QKᵀ −
+    lse) and attn_h = P(rounded to v's dtype)·V rounded to x's dtype;
+    dW_out = Σ attnᵀ·dO; dAttn = dO·W_outᵀ
     rounded to x's dtype; the packed backward of (qkv, attn, lse, dAttn)
     (:func:`attention_packed_backward_reference`: Δ = rowsum(dAttn∘attn) in
     f32, dS rounded) giving dqkv rounded to x's dtype; dX = dqkv·W_qkvᵀ and
@@ -800,7 +822,7 @@ def attention_block_backward_reference(x, w_qkv, w_out, lse, dout, n_heads: int,
     """
     acc, wq, wo = _block_operands(x, w_qkv, w_out)
     b, t, _ = x.shape
-    qkv = torch.matmul(x.to(acc), wq).to(x.dtype)
+    qkv = _project_qkv(x, wq, acc)
     ch = _split(qkv.shape[-1], n_heads)
     q, k, v = (h.transpose(1, 2) for h in qkv.to(acc).view(b, t, 3, n_heads, ch).unbind(2))
     p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale
@@ -836,13 +858,26 @@ def _check_block_input(x: torch.Tensor, ch: int, what: str):
         raise ValueError(f"{what}: the attention block kernels need a 16-byte aligned tensor")
 
 
-def _splits(rows: int, cols: int, depth: int, device) -> int:
-    """K splits of a weight-gradient product: enough [64, 64] tiles for two
-    blocks on every SM, each split at least 256 rows deep. A function of the
-    shape and the card alone, so the sums' order repeats from run to run."""
-    tiles = -(-rows // 64) * -(-cols // 64)
+def _splits(rows: int, cols: int, depth: int, dtype, device) -> int:
+    """K splits of a weight-gradient product: enough output tiles for two
+    blocks on every SM, each split at least 256 rows deep. The tiles are the
+    GEMM's of the dtype: [128, 128] for the bf16 tensor-core GEMM, [64, 64]
+    for the f32 CUDA-core one. A function of the shape, the dtype and the
+    card alone, so the sums' order repeats from run to run."""
+    edge = 128 if dtype == torch.bfloat16 else 64
+    tiles = -(-rows // edge) * -(-cols // edge)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-2 * sms // tiles), depth // 256))
+
+
+def _weight_scratch(x, c: int, width: int, c_out: int):
+    """The bf16 kernels' copy of both weights rounded to bf16, rows padded to
+    a multiple of 8 entries: C·pad8(3·H·ch) + H·ch·pad8(C_out) entries; None
+    for f32, whose kernels read the f32 weights themselves."""
+    if x.dtype != torch.bfloat16:
+        return None
+    n = c * (-(-3 * width // 8) * 8) + width * (-(-c_out // 8) * 8)
+    return torch.empty(n, dtype=torch.bfloat16, device=x.device)
 
 
 def _launch_block(x, w_qkv, w_out, n_heads: int, scale: float):
@@ -858,12 +893,14 @@ def _launch_block(x, w_qkv, w_out, n_heads: int, scale: float):
     lse = torch.empty((b, t, n_heads), dtype=torch.float32, device=x.device)
     qkv = torch.empty((b, t, 3 * width), dtype=x.dtype, device=x.device)
     attn = torch.empty((b, t, width), dtype=x.dtype, device=x.device)
+    w_ws = _weight_scratch(x, c, width, c_out)
+    w_ws_ptr = None if w_ws is None else w_ws.data_ptr()
     _call("attention_block", "attention_block_fwd",
           [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 4
+           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 5
           + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int],
           [x.data_ptr(), w_qkv.data_ptr(), *w_qkv.stride(), w_out.data_ptr(), *w_out.stride(),
-           out.data_ptr(), lse.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+           out.data_ptr(), lse.data_ptr(), qkv.data_ptr(), attn.data_ptr(), w_ws_ptr,
            b, t, c, n_heads, ch, c_out, float(scale), _DTYPE_CODES[x.dtype]], x.device)
     block_launch_count += 1
     return out, lse
@@ -891,23 +928,25 @@ def _launch_block_backward(x, w_qkv, w_out, lse, dout, n_heads: int, scale: floa
 
     qkv, dqkv, attn, dattn = scratch(3 * width), scratch(3 * width), scratch(width), scratch(width)
     delta = scratch(n_heads, torch.float32)
-    splits_qkv = _splits(c, 3 * width, b * t, x.device)
-    splits_out = _splits(width, c_out, b * t, x.device)
+    splits_qkv = _splits(c, 3 * width, b * t, x.dtype, x.device)
+    splits_out = _splits(width, c_out, b * t, x.dtype, x.device)
     split_ws = torch.empty(max(splits_qkv * c * 3 * width if splits_qkv > 1 else 0,
                                splits_out * width * c_out if splits_out > 1 else 0, 1),
                            dtype=torch.float32, device=x.device)
+    w_ws = _weight_scratch(x, c, width, c_out)
+    w_ws_ptr = None if w_ws is None else w_ws.data_ptr()
     _call("attention_block_bwd", "attention_block_bwd",
           [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 6
+           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 7
           + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int],
           [x.data_ptr(), w_qkv.data_ptr(), *w_qkv.stride(), w_out.data_ptr(), *w_out.stride(),
            lse.data_ptr(), dout.data_ptr(), dx.data_ptr(), dw_qkv.data_ptr(), *dw_qkv.stride(),
            dw_out.data_ptr(), *dw_out.stride(), qkv.data_ptr(), attn.data_ptr(),
            dattn.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
-           split_ws.data_ptr(), splits_qkv, splits_out, b, t, c, n_heads, ch, c_out,
-           float(scale), _DTYPE_CODES[x.dtype]], x.device)
+           split_ws.data_ptr(), w_ws_ptr, splits_qkv, splits_out, b, t, c, n_heads, ch,
+           c_out, float(scale), _DTYPE_CODES[x.dtype]], x.device)
     block_bwd_launch_count += 1
     return dx, dw_qkv, dw_out
 

@@ -35,7 +35,8 @@
 //     C > 64) and streams K and V tiles through shared memory as f32 with an
 //     online softmax; a C that is not a multiple of 8 runs the next padded
 //     width with loads masked past C. The fused attention block
-//     (attention_block.cu, row 5) runs this device code in both dtypes.
+//     (attention_block.cu, row 5) runs the same device code in each dtype:
+//     the tensor-core kernel in bf16, this one in f32.
 //
 // Head dims: every C from 1 to 128, in both kernels. The TPU kernel's
 // d % 8 rule was a Mosaic lane rule, not a rule of the function.

@@ -42,8 +42,9 @@
 //     kernels. Threads own query rows (dq kernel) or key rows (dk/dv kernel)
 //     with a row of C head dims split over 1 to 8 neighbouring threads, and
 //     stream the other side's tiles through shared memory as f32. The fused
-//     attention block's backward (attention_block_bwd.cu, row 6) runs this
-//     device code in both dtypes.
+//     attention block's backward (attention_block_bwd.cu, row 6) runs the
+//     same device code in each dtype: the tensor-core kernels in bf16, these
+//     in f32.
 //
 // Head dims: every C from 1 to 128, in both dtypes.
 

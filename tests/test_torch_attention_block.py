@@ -34,7 +34,13 @@ from ot_vae_tpu_torch.priors import GaussianPrior
 
 # f32 on both sides, the same products in another summation order over at
 # most 32 keys and 24 channels: measured below 1e-6, held at the JAX test's
-# 1e-5 (tests/test_attention_pallas.py:222)
+# 1e-5 (tests/test_attention_pallas.py:222). The tile-edge shapes (up to 130
+# keys and 40 channels) read up to 0.57 of it (out at t65_h3_ch13). The
+# bound is absolute: at C = H·ch = 48 and T = 130 the outputs reach 7 and
+# another summation order moved out by 1.8e-5, so the ch = 48 shape takes
+# C = 16 here. The kernels' C = 48 edge is held on the card in bf16,
+# against their plain versions: chip_smoke.py phase 22 runs this shape with
+# C = H·ch = C_out = 48 among its BLOCK_TILE_SHAPES
 ATOL = 1e-5
 # gradients, f32: the JAX test's tolerances (atol 5e-5, rtol 1e-4)
 GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4
@@ -43,13 +49,19 @@ GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4
 # round an entry the other way, which moves an output by up to one bf16 ulp
 # of its scale (2^-8 of its largest entry). The JAX test's f32 tolerances do
 # not hold there: the gradients' largest error measured 0.37 of that ulp (dx
-# at h2_ch8), the outputs' less
+# at h2_ch8), the outputs' less; at the tile-edge shapes 0.61 (dx at
+# t130_ch48), the outputs 0.31
 BF16_ULP = 2.0**-8
 
 # (b, t, c, h, ch, c_out): the JAX test's shapes (C = 24 with H·ch = 16)
-# and one with C_out != C
-SHAPES = [(2, 32, 24, 1, 16, 24), (2, 32, 24, 2, 8, 24), (2, 20, 12, 3, 4, 40)]
-IDS = ["h1_ch16", "h2_ch8", "c_out40"]
+# and one with C_out != C; then the edges of the bf16 tensor-core kernels
+# (64-row attention tiles, 128 x 128 GEMM tiles 32 deep, head dims padded to
+# a multiple of 16, 16-byte copies only where rows start on 16 bytes): T =
+# 65 with ch = 13 and H = 3 (H·ch = 39) and C = 40, C_out = 24, neither a
+# multiple of 16; T = 130 with ch = 48
+SHAPES = [(2, 32, 24, 1, 16, 24), (2, 32, 24, 2, 8, 24), (2, 20, 12, 3, 4, 40),
+          (1, 65, 40, 3, 13, 24), (1, 130, 16, 1, 48, 16)]
+IDS = ["h1_ch16", "h2_ch8", "c_out40", "t65_h3_ch13", "t130_ch48"]
 
 
 def _inputs(b, t, c, h, ch, c_out, seed):
@@ -129,6 +141,23 @@ def test_plain_backward_matches_pallas_vjp(shape, dtype):
         else:
             np.testing.assert_allclose(_np(g), w, rtol=0, err_msg=name,
                                        atol=BF16_ULP * np.abs(w).max())
+
+
+def test_plain_bf16_qkv_is_the_exact_sum_rounded():
+    """In bf16 the plain versions take qkv from the exact sum of the
+    products, rounded once to f32 and then to bf16, as the row-5 and row-6
+    kernels do on the FP64 tensor cores: the same bits in any order of the
+    sum. f32 and f64 inputs keep their own accumulation."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((3, 50, 96)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((96, 72)) / np.sqrt(96)).astype(np.float32))
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16).float()
+    got = attention._project_qkv(xb, wb, torch.float32)
+    x64, w64 = xb.double().numpy(), wb.double().numpy()
+    for exact in (x64 @ w64, x64[..., ::-1] @ w64[::-1]):
+        assert torch.equal(got, torch.from_numpy(exact.astype(np.float32)).to(torch.bfloat16))
+    assert torch.equal(attention._project_qkv(x, w, torch.float32), torch.matmul(x, w))
+    assert attention._project_qkv(x.double(), w.double(), torch.float64).dtype == torch.float64
 
 
 def test_function_gradcheck_f64():
@@ -214,6 +243,99 @@ def test_cuda_launches_each_kernel_once_and_raises_not_a_fallback(mocked_card, m
     monkeypatch.setattr(attention, failing, fail)
     with pytest.raises(RuntimeError, match="launch failed"):
         run()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_calls_reach_the_kernel_symbol(monkeypatch, dtype):
+    """On a CUDA tensor rows 5 and 6 call their libraries' C symbols with
+    the dtype code that picks the kernels (1: bf16, the tensor-core kernels;
+    0: f32, the CUDA-core ones), the weights' own strides, fresh outputs and
+    workspaces of the stated shapes (qkv and dqkv [B·T, 3·H·ch], attn and
+    dAttn [B·T, H·ch], an f32 lse [B, T, H] and D [B·T, H], the f32 split-K
+    workspace, and for bf16 alone the bf16 copy of both weights with rows
+    padded to 8), weight gradients in the weights' layouts, and K splits
+    from the shape and the card's SM count; no call reaches a plain
+    version. The C calls are recorded, not run."""
+    calls, made = [], {}
+
+    def record(library, symbol, argtypes, args, device):
+        assert len(argtypes) == len(args)
+        calls.append((library, symbol, args))
+
+    def tracked(make):
+        def wrapper(*args, **kwargs):
+            x = make(*args, **kwargs)
+            made[x.data_ptr()] = (tuple(x.shape), x.dtype)
+            return x
+        return wrapper
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    class Card:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(attention, "_uses_kernel", lambda x: True)
+    monkeypatch.setattr(attention, "_call", record)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Card())
+    monkeypatch.setattr(torch, "empty", tracked(torch.empty))
+    monkeypatch.setattr(torch, "empty_like", tracked(torch.empty_like))
+    for name in ("attention_block_reference", "attention_block_backward_reference"):
+        monkeypatch.setattr(attention, name, refuse)
+
+    # B·T = 520 rows: two K splits of at least 256 rows each
+    b, t, c, h, ch, c_out = 4, 130, 40, 3, 16, 20
+    width = h * ch
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    x_np, wq_np, wo_np, dout_np = _inputs(b, t, c, h, ch, c_out, seed=6)
+    x, dout = _t(x_np, tdt), _t(dout_np, tdt)
+    wq = _t(wq_np.T).contiguous().t()  # the model's layout: an [out, in] weight viewed
+    wo = _t(wo_np)
+    code = {"bfloat16": 1, "float32": 0}[dtype]
+    # the forward's workspaces are freed on return, and the backward's may
+    # take their addresses: each call is checked before the next is made
+    out, lse = attention_block(x, wq, wo, h)
+    (lib_f, sym_f, fwd), = calls
+    assert (lib_f, sym_f) == ("attention_block", "attention_block_fwd")
+    assert fwd[-1] == code and fwd[-2] == pytest.approx(1.0 / np.sqrt(ch))
+    assert fwd[:7] == [x.data_ptr(), wq.data_ptr(), *wq.stride(), wo.data_ptr(), *wo.stride()]
+    assert fwd[12:18] == [b, t, c, h, ch, c_out]
+    out_p, lse_p, qkv_p, attn_p, wws_p = fwd[7:12]
+    assert made[out_p] == ((b, t, c_out), tdt) and out_p == out.data_ptr()
+    assert made[lse_p] == ((b, t, h), torch.float32) and lse_p == lse.data_ptr()
+    assert made[qkv_p] == ((b, t, 3 * width), tdt) and made[attn_p] == ((b, t, width), tdt)
+    # bf16 weights: [C, pad8(3·H·ch)] then [H·ch, pad8(C_out)]
+    w_ws = ((c * 144 + width * 24,), torch.bfloat16)
+    assert (made[wws_p] == w_ws) if dtype == "bfloat16" else wws_p is None
+    fresh = [out_p, lse_p, qkv_p, attn_p] + ([wws_p] if dtype == "bfloat16" else [])
+    assert len(set(fresh)) == len(fresh)
+    assert not set(fresh) & {x.data_ptr(), wq.data_ptr(), wo.data_ptr()}
+
+    made.clear()
+    grads = attention.attention_block_backward(x, wq, wo, lse, dout, h)
+    (lib_b, sym_b, bwd), = calls[1:]
+    assert (lib_b, sym_b) == ("attention_block_bwd", "attention_block_bwd")
+    assert bwd[-1] == code and bwd[-2] == fwd[-2]
+    assert bwd[:9] == [x.data_ptr(), wq.data_ptr(), *wq.stride(), wo.data_ptr(), *wo.stride(),
+                       lse_p, dout.data_ptr()]
+    dx_p, dwq_p, dwq_s, dwo_p, dwo_s = bwd[9], bwd[10], bwd[11:13], bwd[13], bwd[14:16]
+    assert made[dx_p] == ((b, t, c), tdt) and dx_p == grads[0].data_ptr()
+    assert dwq_p == grads[1].data_ptr() and tuple(dwq_s) == wq.stride() == grads[1].stride()
+    assert dwo_p == grads[2].data_ptr() and tuple(dwo_s) == wo.stride() == grads[2].stride()
+    assert grads[1].dtype == grads[2].dtype == torch.float32
+    qkv_b, attn_b, dattn_b, dqkv_b, delta_b, split_b, wws_b = bwd[16:23]
+    assert made[qkv_b] == made[dqkv_b] == ((b * t, 3 * width), tdt)
+    assert made[attn_b] == made[dattn_b] == ((b * t, width), tdt)
+    assert made[delta_b] == ((b * t, h), torch.float32)
+    assert bwd[23:25] == [2, 2]  # K splits of dW_qkv and dW_out
+    assert made[split_b] == ((2 * c * 3 * width,), torch.float32)
+    assert (made[wws_b] == w_ws) if dtype == "bfloat16" else wws_b is None
+    assert bwd[25:31] == [b, t, c, h, ch, c_out]
+    fresh = [dx_p, dwq_p, dwo_p, qkv_b, attn_b, dattn_b, dqkv_b, delta_b, split_b] + (
+        [wws_b] if dtype == "bfloat16" else [])
+    assert len(set(fresh)) == len(fresh)
+    assert not set(fresh) & {x.data_ptr(), dout.data_ptr(), wq.data_ptr(), wo.data_ptr(),
+                             lse.data_ptr()}
 
 
 # ------------------------------------------------------------------ modules
