@@ -47,12 +47,15 @@ toolkit. Phases, each printing one line:
 11. Sinkhorn kernel: against its plain version at the latent-transport
    path's reg, max_iter and threshold (1e-5, 1000, 1e-6) on costs built from
    seeded codebooks as DiscreteTransport.compute builds them (one 256 x 256
-   instance, 64 x 256 x 256, a ragged 3 x 37 x 200, one 1024 x 1024): the
-   same iteration counts, each instance's total cost, the entries at the
-   path's 256 x 256, marginals as close to a and b as the plain version's;
+   instance, 64 x 256 x 256, a ragged 3 x 37 x 200, one 1024 x 1024, and
+   2 x 5 x 300, fewer rows than the kernel's cluster has CTAs): the same
+   iteration counts, each instance's total cost, the entries at the path's
+   256 x 256, marginals as close to a and b as the plain version's; each
+   shape's launch plan (cluster size, rows resident and streamed a CTA);
    then a well-conditioned batch whose instances stop at different
-   iterations, entry by entry and count by count; its time at 256 x 256
-   beside its bound and the plain version;
+   iterations, entry by entry and count by count; its times at 1 x 256 x
+   256, 64 x 256 x 256 and 1 x 1024 x 1024 beside the bound and the plain
+   version (where that takes under 3 s);
 12. MNIST32 latent transport: the AutoEncoder at full width with a discrete
    LatentTransport (256 components, codebook-to-codebook Sinkhorn) on the
    seeded synthetic MNIST32 fallback: Trainer.fit for 4 epochs (one Sinkhorn
@@ -244,6 +247,14 @@ SMALL_FLOOR = 2.0**-8
 # Sinkhorn, the latent-transport path's settings (DiscreteTransport)
 SINKHORN_PATH = dict(reg=1e-5, max_iter=1000, threshold=1e-6)
 SINKHORN_SHAPES = [(1, 256, 256), (64, 256, 256), (3, 37, 200), (1, 1024, 1024)]
+# fewer rows than CTAs in the kernel's cluster (CTAs with empty bands) and M
+# not a multiple of 32, held by the same gates as the other off-path shapes
+SINKHORN_EDGE_SHAPES = [(2, 5, 300)]
+# shapes the kernel is timed at: the path's, a batch that fills the card,
+# and the largest, whose rows of Cr do not all fit in the cluster; the plain
+# version is timed where its checked call took less than this many seconds
+SINKHORN_TIMED = [(1, 256, 256), (64, 256, 256), (1, 1024, 1024)]
+SINKHORN_PLAIN_SECONDS = 3.0
 # at the path's reg |Cr| reaches 1e5 and more, where an f32 ulp is 0.008, so
 # exp(u + v + Cr) carries percent-level error in any implementation and two
 # summation orders do not agree entry by entry (the largest difference is
@@ -1020,14 +1031,24 @@ def codebook_costs(batch: int, n: int, m: int, dim: int, seed: int):
 
 
 def phase_sinkhorn(sinkhorn):
-    """The Sinkhorn kernel against its plain version; its time at 256²."""
+    """The Sinkhorn kernel against its plain version; its times at
+    SINKHORN_TIMED. Returns the largest entry difference and the timings by
+    shape."""
     worst, rows = 0.0, {}
-    for batch, n, m in SINKHORN_SHAPES:
+    for batch, n, m in SINKHORN_SHAPES + SINKHORN_EDGE_SHAPES:
+        lp = sinkhorn._launch_plan(n, m)
+        print(f"sinkhorn plan N={n} M={m}: cluster {lp.cluster}, {lp.rows} rows a CTA, "
+              f"{lp.resident} resident, {lp.streamed} streamed, {lp.slices} row-pass "
+              f"slices, {lp.smem_bytes} bytes of shared memory a CTA; "
+              f"{sinkhorn.active_clusters(n, m)} clusters at once", flush=True)
         a, b, cost = codebook_costs(batch, n, m, 16, seed=batch * 7919 + n)
         got = sinkhorn.sinkhorn_log_kernel(a, b, cost, return_extra=True, **SINKHORN_PATH)
         torch.cuda.synchronize()
+        start = time.perf_counter()
         want = sinkhorn.sinkhorn_log_kernel_reference(a, b, cost, return_extra=True,
                                                       **SINKHORN_PATH)
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - start
         diff = (got.plan - want.plan).abs().max().item()
         top = want.plan.abs().max().item()
         marg = {}
@@ -1061,26 +1082,32 @@ def phase_sinkhorn(sinkhorn):
             check(marg["kernel"][k] <= limit,
                   f"sinkhorn B={batch} N={n} M={m}: marginal {k} {marg['kernel'][k]} > {limit}")
         worst = max(worst, diff)
-        if (batch, n, m) == (1, 256, 256):
+        if (batch, n, m) in SINKHORN_TIMED:
             flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
             exps = 2.0 * n * m * int(got.num_iters.sum())
             bytes_ms = (2 * cost.numel() + a.numel() + b.numel()) * 4 / HBM_BYTES_PER_S * 1e3
             ops_ms = exps / EXP_PER_S * 1e3
-            rows = {
+            row = {
                 "ms": time_ms(lambda: sinkhorn.sinkhorn_log_kernel(a, b, cost, **SINKHORN_PATH),
                               flush, reps=10),
-                "plain_ms": time_ms(lambda: sinkhorn.sinkhorn_log_kernel_reference(
-                    a, b, cost, **SINKHORN_PATH), flush, reps=3),
+                "plain_ms": (time_ms(lambda: sinkhorn.sinkhorn_log_kernel_reference(
+                    a, b, cost, **SINKHORN_PATH), flush, reps=3)
+                    if plain_seconds < SINKHORN_PLAIN_SECONDS else None),
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                 "library_ms": None,
                 "iters": int(got.num_iters.sum()),
             }
+            rows[(batch, n, m)] = row
             del flush
-            print(f"sinkhorn time f32 N=M=256, {rows['iters']} iterations: kernel "
-                  f"{rows['ms']:.4f} ms, bound {rows['bound_ms']:.4f} ms ({rows['bound_by']}: "
-                  f"{exps:.3e} exponentials), plain {rows['plain_ms']:.4f} ms; no single "
-                  f"PyTorch call computes Sinkhorn", flush=True)
+            plain = (f"plain {row['plain_ms']:.4f} ms" if row["plain_ms"] is not None else
+                     f"plain not timed (its check took {plain_seconds:.1f} s)")
+            print(f"sinkhorn time f32 B={batch} N={n} M={m}, {row['iters']} iterations in all: "
+                  f"kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}: {exps:.3e} exponentials; share "
+                  f"{row['bound_ms'] / row['ms']:.4f}), {plain}; no single PyTorch call "
+                  f"computes Sinkhorn", flush=True)
+        del a, b, cost, got, want
 
     gen = torch.Generator(device="cuda").manual_seed(97)
     scales = torch.tensor([1.0, 0.5, 0.25, 0.1], device="cuda")
@@ -2247,7 +2274,8 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
         del model
         small_worst = phase_small_heads(attention)
-        sk_worst, sk_timing = phase_sinkhorn(sinkhorn)
+        sk_worst, sk_timings = phase_sinkhorn(sinkhorn)
+        sk_timing = sk_timings[(1, 256, 256)]
         transport_launches = phase_mnist32_transport(attention, sinkhorn, args.seed, workdir)
         shutil.rmtree(workdir, ignore_errors=True)
         vae_launches = phase_mnist32_vae(attention, args.seed)

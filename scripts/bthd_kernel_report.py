@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Resources and tensor-core use of the kernels that run bf16 on the tensor
 cores: the BTHD/BHTC kernels (rows 7, 3, 8 and 4), the packed ones (rows 1
-and 2) and the fused attention block's (rows 5 and 6), on the card.
+and 2) and the fused attention block's (rows 5 and 6), on the card; and the
+resources of the Sinkhorn kernel (row 9).
 
     python scripts/bthd_kernel_report.py
 
 Builds ``csrc/attention_bthd.cu``, ``attention_bthd_bwd.cu``,
 ``attention_packed.cu``, ``attention_packed_bwd.cu``, ``attention_block.cu``
-and ``attention_block_bwd.cu`` with the port's nvcc flags plus ``-Xptxas
--v`` into ``build/kernel_report/`` (one nvcc each, all at once) and
-sorts every kernel of each library into one of three kinds by its name:
+and ``attention_block_bwd.cu`` (and ``sinkhorn_log.cu``) with the port's
+nvcc flags plus ``-Xptxas -v`` into ``build/kernel_report/`` (one nvcc each,
+all at once) and sorts every kernel of each library into one of three kinds
+by its name:
 
 - ``mma``: the bf16 tensor-core kernels (``attention_fwd_mma<C>``,
   ``attention_dq_mma<C>``, ``attention_dkdv_mma<C>``, C the head dims padded
@@ -29,7 +31,10 @@ So no bf16 product runs on CUDA cores: every bf16 call of the six
 libraries launches ``mma`` kernels for its products. The bf16 kernels'
 attention tiles are dynamic shared memory, set at launch (the headers'
 notes, ``attention_fwd_mma.cuh`` and ``attention_bwd_mma.cuh``, state the
-budget); ``mma_gemm_kernel``'s is static.
+budget); ``mma_gemm_kernel``'s is static. Every kernel of
+``sinkhorn_log.cu`` (f32, CUDA cores) gets a line of its registers, spills
+and static shared memory, and the Sinkhorn launch plans' dynamic shared
+memory a CTA is printed at chip_smoke.py's timed shapes.
 
 Prints the card's name and power limit first and a JSON line of the numbers
 last; exits 1 if a kind's rule does not hold. Needs the CUDA toolkit
@@ -52,7 +57,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "kernel_report"
 LIBRARIES = ("attention_bthd", "attention_bthd_bwd", "attention_packed", "attention_packed_bwd",
-             "attention_block", "attention_block_bwd")
+             "attention_block", "attention_block_bwd", "sinkhorn_log")
+# libraries each of whose kernels gets a line of its resources, whatever its kind
+RESOURCE_LINES = ("sinkhorn_log",)
 MMA = ("attention_fwd_mma", "attention_dq_mma", "attention_dkdv_mma", "attn_from_lse_mma",
        "mma_gemm_kernel", "exact_gemm_kernel")
 NO_PRODUCTS = ("cast_weights_kernel", "reduce_splits_kernel")
@@ -67,7 +74,8 @@ def build(nvcc: str, flags, source: Path, target: Path) -> str:
 
 
 def resources(log: str):
-    """{mangled kernel name: (registers, spill stores, spill loads)}"""
+    """{mangled kernel name: [registers, spill stores, spill loads, static
+    shared memory bytes]}"""
     found, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -76,10 +84,12 @@ def resources(log: str):
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if name and spill:
-            found[name] = [None, int(spill.group(1)), int(spill.group(2))]
+            found[name] = [None, int(spill.group(1)), int(spill.group(2)), 0]
         regs = re.search(r"Used (\d+) registers", line)
         if name and regs and name in found:
             found[name][0] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[name][3] = int(smem.group(1)) if smem else 0
     return found
 
 
@@ -141,7 +151,7 @@ def main(argv=None) -> int:
     cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).with_name("cuobjdump"))
     readable = demangler(nvcc)
     OUT.mkdir(parents=True, exist_ok=True)
-    report = {"kernels": [], "f32_mma": {}, "no_products_mma": {}}
+    report = {"kernels": [], "resources": [], "f32_mma": {}, "no_products_mma": {}}
     broken = []
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc each, all at once
         logs = list(pool.map(lambda stem: build(nvcc, _build.NVCC_FLAGS,
@@ -155,7 +165,7 @@ def main(argv=None) -> int:
         for mangled in counts:
             by_kind[kind(mangled)].append(mangled)
         for mangled in sorted(by_kind["mma"], key=readable):
-            regs, stores, loads = used.get(mangled, (None, None, None))
+            regs, stores, loads, _ = used.get(mangled, (None, None, None, None))
             row = {"library": stem, "kernel": readable(mangled), "registers": regs,
                    "spill_stores": stores, "spill_loads": loads,
                    "hmma": counts[mangled]["HMMA"], "dmma": counts[mangled]["DMMA"]}
@@ -164,12 +174,29 @@ def main(argv=None) -> int:
                   f"{stores}/{loads} bytes, {row['hmma']} HMMA, {row['dmma']} DMMA", flush=True)
             if row["hmma"] + row["dmma"] == 0:
                 broken.append(f"{stem}: {row['kernel']} holds no HMMA or DMMA")
+        if stem in RESOURCE_LINES:
+            for mangled in sorted(counts, key=readable):
+                regs, stores, loads, smem = used.get(mangled, (None, None, None, None))
+                row = {"library": stem, "kernel": readable(mangled), "registers": regs,
+                       "spill_stores": stores, "spill_loads": loads, "static_smem": smem}
+                report["resources"].append(row)
+                print(f"{target.name}: {row['kernel']}: {regs} registers, spill "
+                      f"{stores}/{loads} bytes, {smem} bytes static shared memory", flush=True)
         for key, name in (("f32", "f32_mma"), ("no products", "no_products_mma")):
             report[name][stem] = sum(sum(counts[k].values()) for k in by_kind[key])
             print(f"{target.name}: {len(by_kind[key])} {key} kernels: "
                   f"{report[name][stem]} HMMA or DMMA", flush=True)
             if report[name][stem]:
                 broken.append(f"{stem}: {key} kernels hold HMMA or DMMA")
+    from ot_vae_tpu_torch.ops.sinkhorn import _launch_plan
+
+    report["sinkhorn_plans"] = {}
+    for _, n, m in cs.SINKHORN_TIMED:
+        lp = _launch_plan(n, m)
+        report["sinkhorn_plans"][f"{n}x{m}"] = lp._asdict()
+        print(f"sinkhorn_log plan N={n} M={m}: cluster {lp.cluster}, {lp.rows} rows a CTA "
+              f"({lp.resident} resident, {lp.streamed} streamed), {lp.slices} slices, "
+              f"{lp.smem_bytes} bytes dynamic shared memory a CTA", flush=True)
     print(json.dumps(report))
     for line in broken:
         print(f"bthd_kernel_report: {line}", file=sys.stderr)

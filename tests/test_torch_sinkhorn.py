@@ -114,3 +114,91 @@ def test_dispatcher_takes_the_plain_version_on_the_cpu():
     assert torch.equal(got, want) and sinkhorn.launch_count == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         sinkhorn_log_kernel(a, b, cost)
+
+
+# Dynamic shared memory a CTA, as the kernel report printed it on an H100.
+SMEM_ON_THE_CARD = {(256, 256): 38592, (1024, 1024): 231168}
+
+
+@pytest.mark.parametrize("n,m,resident,streamed,slices", [
+    (256, 256, 32, 0, 2),  # the path's shape: every row in shared memory
+    (1024, 1024, 53, 75, 1),  # Cr is 4 MB: part of each band streamed from L2
+    (5, 300, 1, 0, 1),  # fewer rows than CTAs: CTAs 5 to 7 hold empty bands
+    (37, 200, 5, 0, 2),
+])
+def test_launch_plan(n, m, resident, streamed, slices):
+    """Bands of ceil(N / CLUSTER) rows, as many of them resident as fit beside
+    v, u and the row-pass partials, within the shared memory a block may
+    have."""
+    lp = sinkhorn._launch_plan(n, m)
+    rows = -(-n // sinkhorn.CLUSTER)
+    assert lp.cluster == sinkhorn.CLUSTER >= 8
+    assert (lp.rows, lp.resident, lp.streamed, lp.slices) == (rows, resident, streamed, slices)
+    assert lp.resident + lp.streamed == lp.rows and lp.cluster * lp.rows >= n
+    assert lp.smem_bytes <= sinkhorn.MAX_SHARED_BYTES
+    if (n, m) in SMEM_ON_THE_CARD:
+        assert lp.smem_bytes == SMEM_ON_THE_CARD[n, m]
+    if streamed:  # one more resident row would not fit
+        assert lp.smem_bytes + 4 * m > sinkhorn.MAX_SHARED_BYTES
+    bands = [range(min(r * rows, n), min((r + 1) * rows, n)) for r in range(lp.cluster)]
+    assert sum(map(len, bands)) == n
+    assert (n >= lp.cluster) == all(bands)
+
+
+def test_launch_plan_limit():
+    """The fixed part grows by about 12.5 bytes a column (v, the inbox of
+    partials and the column slice's log b) and 8 bytes a band row: M =
+    18,572 is the widest an N = 1 instance may be; N = M = 14,000 (N + M =
+    28,000, the limit of the single-block kernel before) plans with every
+    row streamed, and N = 1,000, M = 27,000, within that old limit, now
+    raises."""
+    assert sinkhorn._launch_plan(1, 18572).resident == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        sinkhorn._launch_plan(1, 18573)
+    assert sinkhorn._launch_plan(14000, 14000)[1:4] == (1750, 0, 1750)
+    with pytest.raises(ValueError, match="shared memory"):
+        sinkhorn._launch_plan(1000, 27000)
+
+
+def test_cuda_call_reaches_the_kernel_symbol(monkeypatch):
+    """On a CUDA tensor the dispatcher calls the library's ``sinkhorn_log``
+    with the launch plan's arguments, f32 inputs flattened to [B, …], and
+    fresh outputs: a plan [B, N, M], int32 iters [B] and f32 err [B]; no call
+    reaches the plain version. The C call is recorded, not run."""
+    calls, made = [], {}
+
+    def record(symbol, argtypes, args, device):
+        assert len(argtypes) == len(args)
+        calls.append((symbol, args))
+
+    def tracked(make):
+        def wrapper(*args, **kwargs):
+            x = make(*args, **kwargs)
+            made[x.data_ptr()] = (tuple(x.shape), x.dtype)
+            return x
+        return wrapper
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(sinkhorn, "_uses_kernel", lambda x: True)
+    monkeypatch.setattr(sinkhorn, "_call", record)
+    monkeypatch.setattr(sinkhorn, "sinkhorn_log_kernel_reference", refuse)
+    monkeypatch.setattr(torch, "empty", tracked(torch.empty))
+    monkeypatch.setattr(torch, "empty_like", tracked(torch.empty_like))
+    a, b, cost = (torch.from_numpy(x) for x in _problem(2, 5, 300, seed=11))
+    before = sinkhorn.launch_count
+    got = sinkhorn_log_auto(a, b, cost, reg=0.05, max_iter=77, threshold=1e-4,
+                            return_extra=True)
+    assert sinkhorn.launch_count == before + 1
+    (symbol, args), = calls
+    assert symbol == "sinkhorn_log"
+    lp = sinkhorn._launch_plan(5, 300)
+    assert args[6:] == [2, 5, 300, lp.cluster, lp.rows, lp.resident, lp.slices, lp.smem_bytes,
+                        0.05, 77, 1e-4]
+    assert args[:3] == [a.data_ptr(), b.data_ptr(), cost.data_ptr()]
+    plan_p, iters_p, err_p = args[3:6]
+    assert made[plan_p] == ((2, 5, 300), torch.float32) and plan_p == got.plan.data_ptr()
+    assert made[iters_p] == ((2,), torch.int32) and iters_p == got.num_iters.data_ptr()
+    assert made[err_p] == ((2,), torch.float32) and err_p == got.err.data_ptr()
+    assert got.plan.shape == (2, 5, 300)
