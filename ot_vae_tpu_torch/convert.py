@@ -16,9 +16,10 @@ by the kind of module that holds it, which flax's names carry (``Conv_<i>``,
 :func:`state_dict_to_jax_variables` is the inverse, so tests can hold trained
 parameters and running statistics against the JAX package's key by key.
 
-A fitted discrete transport operator crosses as numpy arrays
-(:func:`discrete_transport_state`): the JAX ``DiscreteTransportState``'s
-codebook states, plan and fitted flag become the port's operator state.
+A transport operator's state crosses as nested mappings of numpy arrays
+(:func:`discrete_transport_state`, :func:`gaussian_transport_state`,
+:func:`gmm_transport_state`): the JAX state's leaves become the port's
+operator state, leaf by leaf under the same names.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ import torch
 from torch import nn
 
 __all__ = ["jax_variables_to_state_dict", "load_jax_variables",
-           "state_dict_to_jax_variables", "discrete_transport_state"]
+           "state_dict_to_jax_variables", "discrete_transport_state",
+           "gaussian_transport_state", "gmm_transport_state"]
 
 _BATCH_NORM = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                "var": "running_var"}
@@ -123,6 +125,28 @@ def state_dict_to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, 
     return variables
 
 
+def _flat_state(state: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested mappings of arrays → numpy arrays by dotted name; a None
+    leaf (the Gaussian's Kahan buffers without compensation) has none."""
+    out = {}
+    for name, value in state.items():
+        if value is None:
+            continue
+        if isinstance(value, Mapping):
+            out.update(_flat_state(value, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = np.asarray(value)
+    return out
+
+
+def _operator_state(state: Mapping[str, Any], operator, device):
+    """A JAX operator state as nested mappings → the port's state for
+    ``operator`` (same configuration), on ``device``; a missing, extra or
+    reshaped leaf raises."""
+    template = operator.init(torch.Generator().manual_seed(0))
+    return type(template).from_arrays(_flat_state(state), template, torch.device(device))
+
+
 def discrete_transport_state(state: Mapping[str, Any], operator, device="cpu"):
     """A ``DiscreteTransportState`` of the JAX package, as nested mappings of
     arrays, → the port's state for ``operator`` (a ``DiscreteTransport`` of
@@ -131,9 +155,25 @@ def discrete_transport_state(state: Mapping[str, Any], operator, device="cpu"):
     :param state: ``{"source": {"codebook", "n_obs", "s1", "initialized"},
         "target": {...}, "plan": ..., "fitted": ...}``
     """
-    arrays = {"plan": np.asarray(state["plan"]), "fitted": np.asarray(state["fitted"])}
-    for side in ("source", "target"):
-        for name, value in state[side].items():
-            arrays[f"{side}.{name}"] = np.asarray(value)
-    template = operator.init(torch.Generator().manual_seed(0))
-    return type(template).from_arrays(arrays, template, device=torch.device(device))
+    return _operator_state(state, operator, device)
+
+
+def gaussian_transport_state(state: Mapping[str, Any], operator, device="cpu"):
+    """A ``GaussianTransportState`` of the JAX package → the port's, for a
+    ``GaussianTransport`` of the same configuration (compensated or not: the
+    Kahan buffers ``c1``, ``c2`` are None without compensation).
+
+    :param state: ``{"source": {"n", "s1", "s2", "c1", "c2"}, "target": {...},
+        "mean_source", "mean_target", "T", "Cw", "fitted"}``
+    """
+    return _operator_state(state, operator, device)
+
+
+def gmm_transport_state(state: Mapping[str, Any], operator, device="cpu"):
+    """A ``GMMTransportState`` of the JAX package → the port's, for a
+    ``GMMTransport`` of the same configuration.
+
+    :param state: ``{"source": {"mean", "cov", "n_obs", "s1", "s2",
+        "initialized"}, "target": {...}, "plan": ..., "fitted": ...}``
+    """
+    return _operator_state(state, operator, device)

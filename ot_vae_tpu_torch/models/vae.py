@@ -163,6 +163,7 @@ class VAE(VisionModel):
                          mode, learning_rate, ema_decay, gradient_clip_val, checkpoints)
         self.expansion = expansion
         self.conditional = conditional
+        self.progressive_transform = None
 
     @property
     def latent_size(self) -> Tuple[int, ...]:
@@ -173,11 +174,15 @@ class VAE(VisionModel):
     def batch_preprocess(self, batch, train: bool = True,
                          generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """(samples, labels) → {'samples', 'target', 'kwargs'}; ``kwargs``
-        holds the labels of a conditional model. ``generator`` is the train
-        step's preprocessing draw (the JAX step's ``k_pre``), which only the
-        ProgressiveTransform curriculum uses; it is not ported yet, so nothing
-        draws from it here."""
+        holds the labels of a conditional model. A training batch first
+        passes through ``progressive_transform``, the curriculum that
+        :class:`ot_vae_tpu_torch.data.progressive.ProgressiveTransform` sets,
+        which draws from ``generator`` (the train step's preprocessing draw,
+        the JAX step's ``k_pre``); samples and target are both the
+        transformed images."""
         samples, labels = batch[0], batch[1]
+        if train and self.progressive_transform is not None:
+            samples = self.progressive_transform(samples, generator)
         kwargs = {"labels": labels} if self.conditional else {}
         return {"samples": samples, "target": samples, "kwargs": kwargs}
 
@@ -236,17 +241,18 @@ class VAE(VisionModel):
 
     @torch.no_grad()
     def eval_encode(self, samples: torch.Tensor,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None, **kwargs) -> torch.Tensor:
         """Latents in eval mode, the eval step's ``latents`` (the JAX
-        ``encode_fn``)."""
+        ``encode_fn``); ``kwargs`` are a batch's (the labels of a conditional
+        model)."""
         self.net.eval()
-        return self.net.encode(samples, generator)
+        return self.net.encode(samples, generator, **kwargs)
 
     @torch.no_grad()
-    def eval_decode(self, latents: torch.Tensor) -> torch.Tensor:
+    def eval_decode(self, latents: torch.Tensor, **kwargs) -> torch.Tensor:
         """Decoded latents in eval mode (the JAX ``decode_fn``)."""
         self.net.eval()
-        return self.net.decode(latents)
+        return self.net.decode(latents, **kwargs)
 
     # ------------------------------------------------------------ user API
 

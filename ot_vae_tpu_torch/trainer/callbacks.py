@@ -1,6 +1,6 @@
 """Callback protocol and the built-in callbacks
-(counterpart: ``ot_vae_tpu/trainer/callbacks.py``). ``Collage`` comes with
-slice 9.
+and ``list_to_collage`` (counterpart: ``ot_vae_tpu/trainer/callbacks.py``).
+The ``Collage`` callback arrives with slice 4c (ROADMAP).
 
 The validation and test loops hand ``on_*_batch_end`` the eval step's
 outputs: ``samples``, ``target``, ``kwargs``, ``preds`` and ``latents``."""
@@ -13,7 +13,9 @@ import shutil
 from pathlib import Path
 from typing import List, Optional
 
-__all__ = ["Callback", "EarlyStopping", "ModelCheckpointCallback"]
+import numpy as np
+
+__all__ = ["Callback", "EarlyStopping", "ModelCheckpointCallback", "list_to_collage"]
 
 
 class Callback:
@@ -104,3 +106,10 @@ class ModelCheckpointCallback(Callback):
     @property
     def best_path(self) -> Optional[str]:
         return self.saved[0][1] if self.saved else None
+
+
+def list_to_collage(images: List[np.ndarray], num_samples: int) -> np.ndarray:
+    """One grid [rows · H, num_samples · W, C] from a list of NHWC batches:
+    each batch's first ``num_samples`` images side by side make a row."""
+    rows = [np.concatenate(list(np.asarray(imgs)[:num_samples]), axis=1) for imgs in images]
+    return np.concatenate(rows, axis=0)

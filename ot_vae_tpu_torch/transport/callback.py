@@ -3,30 +3,32 @@ during training (counterpart: ``ot_vae_tpu/transport/callback.py``).
 
 During validation, clean latents feed the target distribution (even
 batches) and the latents of degraded images the source (odd batches,
-unpaired); at the epoch's end the operator is fitted and its cost logged;
-at test time degraded latents are transported, decoded, and the restored
-images scored with the model's cloned test metrics. ``transport_dims`` are
+unpaired); at the epoch's end the operator is fitted, and its cost and a
+six-panel collage of the first validation batch are logged; at test time
+degraded latents are transported, decoded, and the restored images scored
+with the model's cloned test metrics. ``transport_dims`` are
 1-based dims of the NHWC latent [B, H, W, C]: (3,) transports each pixel's
 channel vector, (1, 2) each channel's spatial map, (1, 2, 3) the whole
 tensor.
 
 Random draws come from the callback's own ``torch.Generator`` (seeded with
 ``seed`` on the trainer's device); a caller of :meth:`transport` may pass
-its own, and then the callback's stream is not touched. The collage arrives
-with slice 9 and the per-class callback with the conditional slice.
+its own, and then the callback's stream is not touched. A conditional
+model's labels reach its encoder and decoder from each batch's ``kwargs``.
+The per-class callback (``class_idx``) arrives with slice 4c (ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ot_vae_tpu_torch.trainer.callbacks import Callback
-from ot_vae_tpu_torch.transport.discrete import DiscreteTransportState
+from ot_vae_tpu_torch.trainer.callbacks import Callback, list_to_collage
 from ot_vae_tpu_torch.utils import (
     camel2snake,
     permute_and_flatten,
@@ -47,6 +49,8 @@ class LatentTransport(Callback):
         and event shapes that ``transport_dims`` give, plus ``operator_kwargs``
     :param transformations: the degradation, ``t(images, generator)``
     :param common_operator: one operator for all positions, else one each
+    :param num_samples_to_log: images in each row of the collage logged at
+        every validation's end (0: none)
     :param device: where the operator state lives until a fit puts it on
         the trainer's device (:meth:`load_state` reads onto it)
     """
@@ -69,14 +73,9 @@ class LatentTransport(Callback):
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.num_samples_to_log > 0:
-            raise NotImplementedError(
-                "num_samples_to_log > 0: the transport collage (Collage, list_to_collage) "
-                "arrives with slice 9 (ROADMAP); pass num_samples_to_log=0")
         if self.class_idx is not None:
             raise NotImplementedError(
-                "class_idx: ConditionalLatentTransport arrives with the conditional slice "
-                "(ROADMAP)")
+                "class_idx: ConditionalLatentTransport arrives with slice 4c (ROADMAP)")
         all_dims = list(range(1, len(self.size) + 1))
         if not set(self.transport_dims).issubset(all_dims):
             raise ValueError(f"`transport_dims` must be a subset of {all_dims}")
@@ -125,8 +124,8 @@ class LatentTransport(Callback):
             self.state, source_samples=flat if source else None,
             target_samples=None if source else flat, generator=self._gen())
 
-    def _encode(self, model, samples: torch.Tensor) -> torch.Tensor:
-        return model.eval_encode(samples, self._gen())
+    def _encode(self, model, samples: torch.Tensor, kwargs) -> torch.Tensor:
+        return model.eval_encode(samples, self._gen(), **kwargs)
 
     def transport(self, latents: torch.Tensor,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -181,12 +180,12 @@ class LatentTransport(Callback):
                 not self.unpaired or not self.source_latents_from_train or batch_idx % 2 == 0):
             latents = outputs.get("latents")
             if latents is None:
-                latents = self._encode(model, outputs["samples"])
+                latents = self._encode(model, outputs["samples"], outputs.get("kwargs", {}))
             self._update(latents.detach(), source=False)
         if self.source_latents_from_train and (
                 not self.unpaired or not self.target_latents_from_train or batch_idx % 2 == 1):
             degraded = self.transformations(outputs["samples"].detach(), self._gen())
-            self._update(self._encode(model, degraded), source=True)
+            self._update(self._encode(model, degraded, outputs.get("kwargs", {})), source=True)
 
     def on_validation_epoch_start(self, trainer, model):
         if self.state is None:
@@ -200,15 +199,15 @@ class LatentTransport(Callback):
                 not self.unpaired or self.source_latents_from_train or batch_idx % 2 == 0):
             latents = outputs.get("latents")
             if latents is None:
-                latents = self._encode(model, outputs["samples"])
+                latents = self._encode(model, outputs["samples"], outputs.get("kwargs", {}))
             self._update(latents, source=False)
         if not self.source_latents_from_train and (
                 not self.unpaired or self.target_latents_from_train or batch_idx % 2 == 1):
             degraded = self.transformations(outputs["samples"], self._gen())
-            self._update(self._encode(model, degraded), source=True)
+            self._update(self._encode(model, degraded, outputs.get("kwargs", {})), source=True)
 
     def on_validation_epoch_end(self, trainer, model):
-        """Fit the operator and log its cost."""
+        """Fit the operator, log its cost and the collage."""
         stored = {side: torch.cat(v, dim=-2) if v else None
                   for side, v in self._stored.items()}
         self.state, cost = self.operator.compute(self.state, stored["source"],
@@ -217,6 +216,7 @@ class LatentTransport(Callback):
         name = self.logging_prefix_full + "avg_transport_cost"
         trainer.logged_metrics[name] = self._last_cost
         trainer.logger.log_metrics({name: self._last_cost}, trainer.global_step)
+        self._log_images(trainer, model)
 
     def on_test_epoch_start(self, trainer, model):
         if self.test_metrics is not None:
@@ -227,9 +227,10 @@ class LatentTransport(Callback):
         """Transport the degraded latents and score the restored images."""
         if self._test_metric_states is None or self.state is None:
             return
-        samples = outputs["samples"]
+        samples, kwargs = outputs["samples"], outputs.get("kwargs", {})
         degraded = self.transformations(samples, self._gen())
-        restored = model.eval_decode(self.transport(self._encode(model, degraded)))
+        restored = model.eval_decode(self.transport(self._encode(model, degraded, kwargs)),
+                                     **kwargs)
         self._test_metric_states = self.test_metrics.update(
             self._test_metric_states, preds=restored, target=samples)
 
@@ -252,3 +253,49 @@ class LatentTransport(Callback):
         draws = self.operator.sample(self.state, self._gen(), n,
                                      source=(from_dist == "source"))
         return self._unflatten(draws)
+
+    # ------------------------------------------------------------ collage
+
+    @torch.no_grad()
+    def _log_images(self, trainer, model):
+        """Six rows of ``num_samples_to_log`` images from the first
+        validation batch: decoded source draws, the degraded images, their
+        reconstructions, their transported reconstructions, the clean images
+        and decoded target draws. Any failure raises."""
+        batch = trainer.first_val_batch
+        if self.num_samples_to_log <= 0 or batch is None:
+            return
+        device = resolve_device(self.device)
+        images, labels = batch
+        pbatch = model.batch_preprocess(
+            (torch.as_tensor(np.asarray(images, np.float32), device=device),
+             torch.as_tensor(np.asarray(labels), device=device)), train=False)
+        samples, kwargs = pbatch["samples"], pbatch["kwargs"]
+        n = samples.shape[0]
+        transformed = self.transformations(samples, self._gen())
+        latents = self._encode(model, transformed, kwargs)
+        panels = [model.eval_decode(self.sample(n, "source"), **kwargs), transformed,
+                  model.eval_decode(latents, **kwargs),
+                  model.eval_decode(self.transport(latents), **kwargs), samples,
+                  model.eval_decode(self.sample(n, "target"), **kwargs)]
+        grid = list_to_collage([p.float().cpu().numpy() for p in panels],
+                               min(n, self.num_samples_to_log))
+        self._save(trainer, grid)
+
+    def _save(self, trainer, grid: np.ndarray):
+        """To the logger's ``log_image`` where it has one, else a PNG under
+        ``collages/`` in the working directory (skipped without PIL)."""
+        if hasattr(trainer.logger, "log_image"):
+            trainer.logger.log_image(self.logging_prefix_full, grid, trainer.global_step)
+            return
+        try:
+            from PIL import Image
+        except ImportError:
+            return
+        out = Path("collages")
+        out.mkdir(exist_ok=True)
+        arr = (np.clip(grid, 0, 1) * 255).astype(np.uint8)
+        if arr.shape[-1] == 1:
+            arr = arr[..., 0]
+        name = self.logging_prefix_full.replace("/", "_")
+        Image.fromarray(arr).save(out / f"{name}epoch{trainer.current_epoch}.png")

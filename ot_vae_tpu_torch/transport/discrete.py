@@ -9,68 +9,25 @@ That is the only Sinkhorn launch of the latent-transport path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Optional
 
-import numpy as np
 import torch
 
 from ot_vae_tpu_torch.distributions.codebook import CodebookModel, CodebookState
 from ot_vae_tpu_torch.ops.sinkhorn import sinkhorn_log_auto
-from ot_vae_tpu_torch.transport.base import TransportOperator
+from ot_vae_tpu_torch.transport.base import OperatorState, TransportOperator
 
 __all__ = ["DiscreteTransport", "DiscreteTransportState"]
 
 _EPS = 1e-8
-_CODEBOOK_FIELDS = ("codebook", "n_obs", "s1", "initialized")
 
 
 @dataclasses.dataclass(frozen=True)
-class DiscreteTransportState:
+class DiscreteTransportState(OperatorState):
     source: CodebookState
     target: CodebookState
     plan: torch.Tensor  # [*L, K, K]
     fitted: bool
-
-    def replace(self, **changes) -> "DiscreteTransportState":
-        return dataclasses.replace(self, **changes)
-
-    def to_arrays(self) -> Dict[str, np.ndarray]:
-        """Leaves as numpy arrays by name (``source.codebook``, ..., ``plan``,
-        ``fitted``): the layout of the state files."""
-        out = {}
-        for side in ("source", "target"):
-            for f in _CODEBOOK_FIELDS:
-                value = getattr(getattr(self, side), f)
-                out[f"{side}.{f}"] = (value.detach().cpu().numpy()
-                                      if torch.is_tensor(value) else np.asarray(value))
-        out["plan"] = self.plan.detach().cpu().numpy()
-        out["fitted"] = np.asarray(self.fitted)
-        return out
-
-    @classmethod
-    def from_arrays(cls, arrays, template: "DiscreteTransportState",
-                    device=None) -> "DiscreteTransportState":
-        """A state with ``template``'s structure from arrays by name (the
-        layout of :meth:`to_arrays`); a missing, extra or reshaped leaf
-        raises."""
-        want = template.to_arrays()
-        if set(arrays) != set(want):
-            raise ValueError(f"state leaves {sorted(arrays)} do not match the operator's "
-                             f"{sorted(want)}")
-        for name, value in want.items():
-            if np.shape(arrays[name]) != value.shape:
-                raise ValueError(f"state leaf {name} has shape {np.shape(arrays[name])}, "
-                                 f"the operator expects {value.shape}")
-        device = template.plan.device if device is None else device
-
-        def tensor(name):
-            return torch.as_tensor(np.array(arrays[name], want[name].dtype), device=device)
-
-        sides = {side: CodebookState(
-            codebook=tensor(f"{side}.codebook"), n_obs=tensor(f"{side}.n_obs"),
-            s1=tensor(f"{side}.s1"), initialized=bool(arrays[f"{side}.initialized"]))
-            for side in ("source", "target")}
-        return cls(plan=tensor("plan"), fitted=bool(arrays["fitted"]), **sides)
 
 
 @dataclasses.dataclass(frozen=True)
