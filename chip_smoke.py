@@ -62,7 +62,7 @@ toolkit. Phases, each printing one line:
    Gaussian operator over the whole latent (D = 1024), a GMM of 10
    diagonal components over each pixel's channels and a 256-atom codebook
    over each channel's map (codebook-to-codebook Sinkhorn), each logging a
-   collage of 4 samples; three runs, the weights from three consecutive
+   collage of 4 samples; five runs, the weights from five consecutive
    seeds, of Trainer.fit for 4 epochs (one Sinkhorn launch per validation,
    the GMM's coupling being the plain Sinkhorn) and Trainer.test with the
    model's and the restored PSNR (the median over the runs of the
@@ -161,7 +161,35 @@ toolkit. Phases, each printing one line:
    (ProgressiveTransform) and a Gaussian LatentTransport whose target
    streams from training (EMA 0.995); test and transported PSNR above the
    gate's 14.5 dB, exactly 6 row-7 and 6 row-8 launches per step (12 with
-   the multiplier) and the validations', collages' and test's launches.
+   the multiplier) and the validations', collages' and test's launches;
+28. the AutoDiffusion gate (tests/test_auto_diffusion.py): the time-
+   conditioned AutoEncoder (capacity 8, latent 2 x 2 x 64, time embedding
+   32) with a Gaussian prior trains 4 epochs of 3000 seeded synthetic MNIST32
+   digits at batch 50 (validation in the last), five runs from the JAX
+   gate's own initial weights (those the JAX package's Trainer(seed=42)
+   draws, reproduced by jax_init) under five trainer seeds; the median
+   test PSNR above the gate's 15 dB, t drawn per test image from the eval
+   step's generator; on the median run's model the diffusion sampler (5
+   steps) with both algorithms finite at 8 x 32 x 32 x
+   1, return_steps giving 5 images, InferenceEngine.sample equal to the
+   model's sampler; exactly 8 row-1 and 8 row-2 launches a step, 8 row-1 per
+   validation and test batch, 40 per standard and 60 per improved sampler
+   call, and none of rows 7 and 8; the samplers' times for 8 images;
+29. the DAD gate (tests/test_dad.py): configs/dad/defaults.yaml's model
+   with dropout 0.1 trains 8 epochs of 2500 seeded synthetic 28² digits at
+   batch 50; test PSNR above the gate's 13 dB; 4 samples through
+   model.sample, finite; the KV-cached sampler equal to the unrolled oracle
+   for one generator; InferenceEngine.sample equal to the model's sampler;
+   exactly 6 row-7 and 6 row-8 launches a step, all 12 with the multiplier
+   and 4 causal, 4 row-7 per validation and test batch, 4 (2 causal) per
+   cached sample, none from its single-token steps, and 32 (30 causal) per
+   oracle sample; both samplers' times for 8 images;
+30. both models' first two train steps at batch 4, f32 on the card (TF32
+   off) against the CPU and an f64 run, from the same weights, images, t,
+   ε, Gumbel noise, sampled indices and dropout masks, as phases 7 and 19.
+
+Phases 14 and 18 also check rows 7 and 8 at the DAD's attention shape (B =
+50, T = 16, H = 4, d = 16: plain, causal, causal with the multiplier).
 
 Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.
@@ -305,15 +333,19 @@ MNIST_TRANSPORT_EPOCHS = 4
 # the latent-transport gate's floor on the restored PSNR of the Gaussian and
 # GMM operators after 4 epochs (tests/test_latent_transport.py, _PSNR_PERFORMANCE),
 # held by the median of MNIST_TRANSPORT_RUNS runs whose weights come from
-# consecutive seeds. One run is one draw of the trained model, and the GMM
-# reading moves with it by more than the floor's margin: on an H100 the
-# same seed read 12.63 to 14.09 dB over five fits (cuDNN's algorithms are
-# not deterministic), other seeds 15.54 to 16.28; on one such model the
-# JAX package's GMM operator restored 12.74 to 13.53 dB over 8 of its own
-# seeds and the port's 12.74 to 13.51, and the JAX gate's own run on the
-# CPU read 14.06 (PERF.md §6)
+# consecutive seeds. One run is one draw of the trained model, and the
+# readings move with it by more than the floor's margin: on an H100 the GMM
+# read 12.63 to 14.09 dB over five fits of one seed (cuDNN's algorithms are
+# not deterministic); on one such model the JAX package's GMM operator
+# restored 12.74 to 13.53 dB over 8 of its own seeds and the port's 12.74 to
+# 13.51, and the JAX gate's own run on the CPU read 14.06. With the kernels
+# drawn as flax draws them, seeds 0-9 read Gaussian 12.47 to 20.27 dB
+# (median 16.90), GMM 14.96 to 18.02 (16.34), discrete 15.03 to 16.90
+# (15.98); the median of three consecutive seeds fell to 13.43 for the
+# Gaussian, the median of five stayed at 16.50 or above (PERF.md §6,
+# scripts/gate_spread.py)
 MNIST_TRANSPORT_PSNR = 14.0
-MNIST_TRANSPORT_RUNS = 3
+MNIST_TRANSPORT_RUNS = 5
 # the fitted MNIST32 operator's test latents transported, and restored,
 # through the kernel's plan and through the plain version's: max abs error
 # over max(1, max |reference|), the tolerance tests/test_torch_transport.py
@@ -341,6 +373,12 @@ BTHD_SHAPES = [(64, 1024, 1024, 4, 128, False, False), (64, 1024, 1024, 2, 128, 
                (16, 200, 200, 2, 64, True, False), (16, 150, 150, 2, 96, False, True),
                (8, 129, 129, 3, 40, True, True), (8, 150, 150, 2, 96, True, True),
                (8, 150, 150, 2, 128, True, True)]
+# the DAD's attention (configs/dad/defaults.yaml, batch 50, 16 tokens, dim
+# 64 over 4 heads): plain (encoder, decoder), causal (the autoregressive
+# stack in eval) and causal with the multiplier (its train step)
+DAD_ATTN_SHAPES = [(50, 16, 16, 4, 16, False, False), (50, 16, 16, 4, 16, True, False),
+                   (50, 16, 16, 4, 16, True, True)]
+BTHD_SHAPES += DAD_ATTN_SHAPES
 BTHD_KEEP = 0.9  # keep probability of the seeded multiplier (mask / keep)
 # bf16 rows 7, 3, 8 and 4 run on the tensor cores in 64-row tiles with head
 # dims padded to a multiple of 16, copied by cp.async when d is a multiple of
@@ -406,7 +444,7 @@ BWD_BTHD_SHAPES = [(32, 1024, 1024, 4, 128, False, False),
                    (50, 19, 19, 4, 32, False, True), (50, 18, 18, 4, 32, False, True),
                    (16, 77, 300, 3, 64, False, False), (16, 37, 37, 5, 13, False, False),
                    (16, 200, 200, 2, 64, True, False), (8, 150, 150, 2, 96, True, True),
-                   (8, 150, 150, 2, 128, True, True)]
+                   (8, 150, 150, 2, 128, True, True)] + DAD_ATTN_SHAPES
 VIT_TRAIN_BATCH = 32  # configs/vae/vit_ffhq128.yaml
 CIFAR_TRAIN_BATCH = 50  # configs/vae/vit.yaml
 # Adam's learning rate of the gated fits: the configs' (the model's default)
@@ -425,6 +463,40 @@ CIFAR_TRANSPORT_PSNR = 14.5
 # the OT core at the MNIST32 gate's shapes: the Gaussian operator over the
 # whole 4 x 4 x 64 latent, about 900 validation samples a side, and the
 # GMM's per-pixel channel vectors
+# the AutoDiffusion gate (tests/test_auto_diffusion.py): 4 epochs of 3000
+# seeded synthetic MNIST32 digits at batch 50, final-epoch validation, 5
+# sampler steps; the JAX gate's floor of 15 dB (the JAX package read 17.3 dB
+# on the TPU, test_auto_diffusion.py:22-25)
+AD_EPOCHS = 4
+AD_PSNR = 15.0
+AD_N_STEPS = 5
+# the gate's reading is mostly its initial weights' draw. On the CPU the JAX
+# package's gate read a median of 15.69 dB over its trainer seeds 42 and
+# 0-11, and the port on an H100, trained from those 13 seeds' JAX-drawn
+# weights, a median of 15.28 (the paired differences' median 0.0 dB, 7 of
+# 13 above the floor in each); seed 4's weights read 14.3 to 15.0 dB through
+# the port under five trainer seeds, the JAX gate's own (seed 42's) 15.67 to
+# 18.74 dB under 18 of 19 trainer seeds, and below -100 dB twice under
+# trainer seed 42 (PERF.md §6, scripts/auto_diffusion_spread.py,
+# scripts/gate_spread.py). So phase 28 trains the JAX gate's own initial
+# weights, drawn by jax_init, and holds the unchanged floor by the median
+# of AD_RUNS runs under trainer seeds 42 + s .. 46 + s; every run is printed
+AD_WEIGHTS_SEED = 42
+AD_RUNS = 5
+# the DAD gate (tests/test_dad.py, the model of configs/dad/defaults.yaml
+# with dropout 0.1): 8 epochs of 2500 seeded synthetic 28² digits at batch
+# 50, final-epoch validation; the JAX gate's floor of 13 dB (13.8 dB on the
+# TPU, test_dad.py:18)
+DAD_EPOCHS = 8
+DAD_PSNR = 13.0
+# the KV-cached DAD sampler against the unrolled oracle for one generator
+# (tests/test_dad.py holds the JAX pair to the same atol): the same tokens
+# decode through the same kernels
+DAD_SAMPLER_ATOL = 1e-5
+# InferenceEngine.sample against the model's sampler for the same
+# generator, max abs error over max(1, max|output|): the same calls on the
+# same device
+ENGINE_SAMPLE_TOL = 1e-5
 OT_GAUSSIAN_DIM = 1024
 OT_SAMPLES = 900
 OT_GMM_DIM = 64
@@ -1320,8 +1392,8 @@ def _mnist32_gate_run(dm, seed: int, sinkhorn):
 
 
 def phase_mnist32_transport(attention, sinkhorn, seed: int, workdir: Path):
-    """The JAX latent-transport gate whole: three runs (weights from
-    ``seed``, ``seed + 1``, ``seed + 2``) of the fit with the three callbacks
+    """The JAX latent-transport gate whole: five runs (weights from
+    ``seed`` to ``seed + 4``) of the fit with the three callbacks
     and the test, their median restored PSNR against the gate's floor; then,
     on the first run's model, save/load, restore serving, and the Sinkhorn
     kernel's plan against the plain version's."""
@@ -1919,36 +1991,57 @@ def phase_bthd_backward(attention):
     return worst, timings, entry_launches
 
 
-class DropoutTape:
-    """Within ``with``: the first run's dropout keep masks, drawn on the CPU
-    from that run's generator and recorded in call order, are handed to the
-    later runs (after ``rewind()``) on their own device, so that every run
-    drops the same entries."""
+class DrawTape:
+    """Within ``with``: the first run's random draws through the port's draw
+    functions (dropout keep masks, Gumbel noise, sampled codebook indices),
+    made on the CPU from that run's generators and recorded in call order,
+    are handed to the later runs (after ``rewind()``) on their own device, so
+    that every run draws the same numbers."""
 
     def __init__(self):
+        from ot_vae_tpu_torch.distributions import codebook
         from ot_vae_tpu_torch.networks import nets_utils
 
-        self.module, self.draw = nets_utils, nets_utils.dropout_keep
-        self.masks, self.at = [], 0
+        # name: (module, draw, the call's device, the shape it asks for)
+        self.sites = {
+            "dropout_keep": (nets_utils, nets_utils.dropout_keep, lambda a: a[3],
+                             lambda a: tuple(a[0])),
+            "gumbel_noise": (codebook, codebook.gumbel_noise, lambda a: a[2],
+                             lambda a: tuple(a[0])),
+            "_categorical": (codebook, codebook._categorical, lambda a: a[0].device,
+                             lambda a: tuple(a[0].shape[:-1]) + ((a[2],) if len(a) > 2
+                                                                 and a[2] else ())),
+        }
+        self.draws = {name: [] for name in self.sites}
+        self.at = dict.fromkeys(self.sites, 0)
 
-    def __call__(self, shape, keep_prob, generator, device):
-        if self.at == len(self.masks):
-            self.masks.append(self.draw(shape, keep_prob, generator, "cpu"))
-        mask = self.masks[self.at]
-        self.at += 1
-        check(tuple(mask.shape) == tuple(shape), f"dropout tape: mask {tuple(mask.shape)} "
-                                                 f"replayed for {tuple(shape)}")
-        return mask.to(device)
+    def _replay(self, name):
+        _, draw, device_of, shape_of = self.sites[name]
+
+        def replay(*args):
+            records, at = self.draws[name], self.at[name]
+            if at == len(records):
+                check(torch.device(device_of(args)).type == "cpu",
+                      f"draw tape: {name} first drawn off the CPU")
+                records.append(draw(*args))
+            self.at[name] = at + 1
+            out = records[at]
+            check(tuple(out.shape) == shape_of(args),
+                  f"draw tape: {name} {tuple(out.shape)} replayed for {shape_of(args)}")
+            return out.to(device_of(args))
+        return replay
 
     def rewind(self):
-        self.at = 0
+        self.at = dict.fromkeys(self.sites, 0)
 
     def __enter__(self):
-        self.module.dropout_keep = self
+        for name, (module, _, _, _) in self.sites.items():
+            setattr(module, name, self._replay(name))
         return self
 
     def __exit__(self, *exc):
-        self.module.dropout_keep = self.draw
+        for name, (module, draw, _, _) in self.sites.items():
+            setattr(module, name, draw)
 
 
 def phase_vit_train_card_vs_cpu(seed: int):
@@ -1972,7 +2065,7 @@ def phase_vit_train_card_vs_cpu(seed: int):
         state = build(seed + 6, torch.float32).state_dict()
         noise = [rng.standard_normal((4, *latent)).astype(np.float32) for _ in batches]
         runs = {}
-        with DropoutTape() as tape:
+        with DrawTape() as tape:
             for run, device, dtype in (("cpu", "cpu", torch.float32),
                                        ("card", "cuda", torch.float32),
                                        ("cpu64", "cpu", torch.float64)):
@@ -1992,29 +2085,36 @@ def phase_vit_train_card_vs_cpu(seed: int):
                         grads = {k: p.grad.detach().double().cpu()
                                  for k, p in model.net.named_parameters()}
                 runs[run] = (losses, grads)
-            n_masks = len(tape.masks)
+            n_masks = len(tape.draws["dropout_keep"])
         _check_train_runs(f"{name}: {n_masks} dropout masks handed across", runs)
 
 
 def _fit(attention, model, dm, workdir: Path, seed: int, callbacks=(), max_epochs: int = 1,
-         **trainer_kw):
+         read=None, **trainer_kw):
     """Trainer.fit with ``callbacks``, a launch probe, a recorder and a
-    checkpoint; the BTHD counts set to 0 before the fit and read after."""
+    checkpoint; every launch count set to 0 before the fit. The probe
+    records ``read()``, a tuple of counters: by default the BTHD counters
+    (row 7, row 8, launches with a multiplier, dout copies, causal
+    launches), and then the fit must launch no packed-attention kernel."""
     from ot_vae_tpu_torch.trainer import Callback, ModelCheckpointCallback, Trainer
+
+    def bthd():
+        return (attention.bthd_launch_count, attention.bthd_bwd_launch_count,
+                attention.mult_launch_count, attention.dout_copies,
+                attention.causal_launch_count)
+
+    counters = read or bthd
 
     class LaunchProbe(Callback):
         """Synchronises after each train step and records the host time and
-        the BTHD counters (row 7, row 8, launches with a multiplier, dout
-        copies), at the start of each epoch and after each step."""
+        ``counters()``, at the start of each epoch and after each step."""
 
         def __init__(self):
             self.rows = []
 
         def _record(self, epoch_start: bool = False):
             torch.cuda.synchronize()
-            self.rows.append((epoch_start, time.perf_counter(), attention.bthd_launch_count,
-                              attention.bthd_bwd_launch_count, attention.mult_launch_count,
-                              attention.dout_copies))
+            self.rows.append((epoch_start, time.perf_counter(), *counters()))
 
         def on_train_epoch_start(self, trainer, model):
             self._record(epoch_start=True)
@@ -2023,8 +2123,8 @@ def _fit(attention, model, dm, workdir: Path, seed: int, callbacks=(), max_epoch
             self._record()
 
         def steps(self):
-            """Per-step differences of (row 7, row 8, multiplier, copies);
-            the validation between two epochs is no step's."""
+            """Per-step differences of the counters; the validation between
+            two epochs is no step's."""
             return [tuple(b - a for a, b in zip(r0[2:], r1[2:]))
                     for r0, r1 in zip(self.rows[:-1], self.rows[1:]) if not r1[0]]
 
@@ -2042,11 +2142,11 @@ def _fit(attention, model, dm, workdir: Path, seed: int, callbacks=(), max_epoch
                       **trainer_kw)
     torch.cuda.reset_peak_memory_stats()
     attention.bthd_launch_count = attention.bthd_bwd_launch_count = 0
-    attention.mult_launch_count = attention.dout_copies = 0
+    attention.mult_launch_count = attention.dout_copies = attention.causal_launch_count = 0
     attention.launch_count = attention.backward_launch_count = 0
     trainer.fit(model, dm)
     torch.cuda.synchronize()
-    check(attention.launch_count == attention.backward_launch_count == 0,
+    check(read is not None or attention.launch_count == attention.backward_launch_count == 0,
           "the ViT path launched the packed-attention kernels")
     launches = {"forward": attention.bthd_launch_count,
                 "backward": attention.bthd_bwd_launch_count,
@@ -2601,6 +2701,359 @@ def phase_cifar_vit_transport(attention, seed: int, workdir: Path):
             "backward": launches["backward"]}
 
 
+def auto_diffusion_model(seed: int, dtype=torch.float32):
+    """The AutoDiffusion gate's model (tests/test_auto_diffusion.py): the
+    AutoEncoder (capacity 8, latent 2 x 2 x 64 doubled, time embedding of
+    32) with a Gaussian prior, 5 sampler steps, PSNR; its initial weights
+    those the JAX package's Trainer(seed=seed) draws for it."""
+    from ot_vae_tpu_torch.jax_init import load_jax_trainer_init
+    from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
+    from ot_vae_tpu_torch.models import AutoDiffusion
+    from ot_vae_tpu_torch.networks import AutoEncoder
+    from ot_vae_tpu_torch.priors import GaussianPrior
+
+    torch.manual_seed(seed)
+    ae = AutoEncoder(1, 64, 32, 2, capacity=8, down_up_sample=True, residual="add",
+                     time_embed_dim=32, double_encoded_features=True, dtype=dtype)
+    model = AutoDiffusion(metrics=MetricCollection({"psnr": PSNR()}), autoencoder=ae,
+                          prior=GaussianPrior(loss_coeff=0.1), n_steps=AD_N_STEPS)
+    load_jax_trainer_init(model.net, seed)
+    return model
+
+
+def dad_model(seed: int, dtype=torch.float32):
+    """configs/dad/defaults.yaml's model, built in code with that file's
+    arguments and dropout 0.1 (tests/test_dad.py): ViT encoder and decoder
+    (28², patch 7, 16 tokens, dim 64, depth 2, 4 heads), a learned shared
+    codebook of 128 atoms (Gumbel-softmax in training, sampled in
+    inference, temperature annealed over 2000 steps), the causal
+    AutoRegressive decoder over its indices; PSNR."""
+    from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
+    from ot_vae_tpu_torch.models import DAD
+    from ot_vae_tpu_torch.networks import AutoRegressive, ViT
+    from ot_vae_tpu_torch.priors import CodebookPrior
+
+    torch.manual_seed(seed)
+    vit = dict(image_size=28, patch_size=7, dim=64, depth=2, heads=4, channels=1,
+               dropout=0.1, dtype=dtype)
+    encoder = ViT(n_embed_tokens=0, output_tokens="input", patch_to_embed=True,
+                  embed_to_patch=False, **vit)
+    n_tokens = encoder.total_num_tokens
+    decoder = ViT(n_embed_tokens=None, n_input_tokens=n_tokens, output_tokens="input",
+                  patch_to_embed=False, embed_to_patch=True, **vit)
+    prior = CodebookPrior(latent_size=encoder.out_size, embed_dims=(2,), n_components=128,
+                          temperature=1e-5, training_mode="gumbel-softmax",
+                          inference_mode="sample", temperature_annealing=2000,
+                          update_with_autograd=True)
+    ar = AutoRegressive(vocab_size=prior.num_embeddings, n_embed_tokens=0,
+                        n_input_tokens=n_tokens, output_tokens="input", patch_to_embed=False,
+                        causal_mask=True, **vit)
+    return DAD(metrics=MetricCollection({"psnr": PSNR()}), encoder=encoder, decoder=decoder,
+               autoregressive_decoder=ar, prior=prior)
+
+
+def _counted(read, fn):
+    """(fn(), the differences of ``read()`` across it), synchronised."""
+    torch.cuda.synchronize()
+    before = read()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(b - a for a, b in zip(before, read()))
+
+
+def _cuda_gen(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _engine_matches(name, model, n: int, seed: int, shape):
+    """InferenceEngine.sample against the model's own sampler (the engine's
+    inference transforms on both) for one generator; the error."""
+    from ot_vae_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine(model)
+    with torch.no_grad():
+        want = model.sample(n, _cuda_gen(seed)).float().cpu().numpy()
+    got = engine.sample(n, _cuda_gen(seed))
+    err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+    check(got.shape == (n, *shape) and bool(np.isfinite(got).all())
+          and err <= ENGINE_SAMPLE_TOL, f"{name}: engine.sample vs the model's sampler {err}")
+    return err
+
+
+def _auto_diffusion_gate_run(attention, dm, seed: int, counts, workdir: Path):
+    """One run of the AutoDiffusion gate: the JAX gate's initial weights,
+    Trainer.fit with ``seed`` keying the trainer's draws, and Trainer.test;
+    checks its losses and launches and returns (model, test PSNR, fit
+    launches, test launches)."""
+    start = time.perf_counter()
+    model = auto_diffusion_model(AD_WEIGHTS_SEED)
+    check(tuple(model.latent_size) == (2, 2, 64), f"AutoDiffusion latent {model.latent_size}")
+    trainer, probe, _, losses, val_psnr, _ = _fit(
+        attention, model, dm, workdir / f"auto_diffusion_{seed}", seed, max_epochs=AD_EPOCHS,
+        read=counts, check_val_every_n_epoch=AD_EPOCHS)
+    fit = counts()
+    test, tested = _counted(counts, lambda: trainer.test(model, dm))
+    run_s = time.perf_counter() - start
+    psnr = test.get("test/metrics/psnr", float("nan"))
+    n_steps = dm.steps_per_epoch("train")
+    val_batches, test_batches = dm.steps_per_epoch("val"), dm.steps_per_epoch("test")
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    print(f"AutoDiffusion gate, the JAX weights of seed {AD_WEIGHTS_SEED}, trainer seed {seed}: "
+          f"{AD_EPOCHS} epochs x {n_steps} steps "
+          f"at batch 50, loss (mean of 20) {first:.4f} -> {last:.4f}, val PSNR "
+          f"{val_psnr:.3f} dB, test PSNR {psnr:.3f} dB; launches (row 1, row 2, rows 7+8) "
+          f"fit {fit}, test {tested}; fit + test {run_s:.1f} s", flush=True)
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"AutoDiffusion seed {seed}: loss {first} -> {last}")
+    # 4 attention blocks in each CNN (16² to 2²): a step runs 8 forward and
+    # 8 backward; a validation or test batch the encoder once and the decoder
+    steps = probe.steps()
+    bad = [i for i, st in enumerate(steps) if st != (8, 8, 0)]
+    check(len(steps) == AD_EPOCHS * n_steps and not bad,
+          f"AutoDiffusion seed {seed}: steps {bad[:5]} launched "
+          f"{[steps[i] for i in bad[:5]]}, expected (8, 8, 0)")
+    check(fit == (8 * AD_EPOCHS * n_steps + 8 * val_batches, 8 * AD_EPOCHS * n_steps, 0)
+          and tested == (8 * test_batches, 0, 0),
+          f"AutoDiffusion seed {seed}: launches fit {fit}, test {tested}")
+    return model, psnr, fit, tested
+
+
+def phase_auto_diffusion(attention, seed: int, workdir: Path):
+    """The AutoDiffusion gate whole (tests/test_auto_diffusion.py): five
+    runs of Trainer.fit (4 epochs) and Trainer.test from the JAX gate's
+    initial weights, trainer seeds 42 + s .. 46 + s, whose median test PSNR
+    must pass the gate's floor; on the median run's model the diffusion
+    sampler with both algorithms and with
+    return_steps, served through InferenceEngine; the launches of rows 1
+    and 2 per step, validation and test batch and sampler call."""
+    from ot_vae_tpu_torch.data import MNIST32
+
+    def counts():
+        return (attention.launch_count, attention.backward_launch_count,
+                attention.bthd_launch_count + attention.bthd_bwd_launch_count)
+
+    start = time.perf_counter()
+    dm = MNIST32(train_batch_size=50, val_batch_size=50, test_batch_size=50, seed=42,
+                 synthetic_train=3000, synthetic_test=500)
+    dm.setup()
+    trainer_seeds = [AD_WEIGHTS_SEED + seed + i for i in range(AD_RUNS)]
+    runs = [_auto_diffusion_gate_run(attention, dm, s, counts, workdir) for s in trainer_seeds]
+    psnrs = [r[1] for r in runs]
+    median = sorted(range(AD_RUNS), key=lambda i: psnrs[i])[AD_RUNS // 2]
+    print(f"AutoDiffusion gate: test PSNR {[round(p, 3) for p in psnrs]} from the JAX weights "
+          f"of seed {AD_WEIGHTS_SEED} under trainer seeds {trainer_seeds}, median "
+          f"{psnrs[median]:.3f} dB (floor {AD_PSNR} dB)", flush=True)
+    check(math.isfinite(psnrs[median]) and psnrs[median] > AD_PSNR,
+          f"AutoDiffusion: median test PSNR {psnrs[median]} over {psnrs}, floor {AD_PSNR}")
+    model = runs[median][0]
+
+    model.net.eval()
+    sample_launches = 0
+    times = {}
+    with torch.no_grad():
+        for improved in (False, True):
+            out, n = _counted(counts, lambda: model.net.diffusion_sample(
+                8, _cuda_gen(seed), improved_algorithm=improved))
+            per_step = 12 if improved else 8  # decode 4, encode 4 (twice improved)
+            check(tuple(out.shape) == (8, 32, 32, 1) and bool(torch.isfinite(out).all())
+                  and n == (AD_N_STEPS * per_step, 0, 0),
+                  f"AutoDiffusion sampler improved={improved}: {tuple(out.shape)}, "
+                  f"launches {n}")
+            sample_launches += n[0]
+            times["improved" if improved else "standard"] = time_ms(
+                lambda: model.net.diffusion_sample(8, _cuda_gen(seed),
+                                                   improved_algorithm=improved), reps=5)
+        steps_out, n = _counted(counts, lambda: model.net.diffusion_sample(
+            4, _cuda_gen(seed + 1), return_steps=True))
+        check(len(steps_out) == AD_N_STEPS
+              and all(tuple(x.shape) == (4, 32, 32, 1) for x in steps_out)
+              and n == (8 * AD_N_STEPS, 0, 0),
+              f"AutoDiffusion return_steps: {len(steps_out)} images, launches {n}")
+        sample_launches += n[0]
+    # served images are cropped back to 28² by MNIST32's inference transform
+    err, n = _counted(counts, lambda: _engine_matches("AutoDiffusion", model, 8, seed + 2,
+                                                      (28, 28, 1)))
+    check(n == (2 * 8 * AD_N_STEPS, 0, 0), f"AutoDiffusion engine.sample: launches {n}")
+    sample_launches += n[0]
+    print(f"AutoDiffusion sampler, 8 images of 32 x 32 x 1, {AD_N_STEPS} steps: standard "
+          f"{times['standard']:.3f} ms, improved {times['improved']:.3f} ms; row-1 launches "
+          f"40 / 60 a call, 40 with return_steps (4 images); engine.sample vs the model's "
+          f"sampler {err:.3e} (tol {ENGINE_SAMPLE_TOL:.0e}); phase "
+          f"{time.perf_counter() - start:.1f} s",
+          flush=True)
+    return {"train": (sum(r[2][0] + r[3][0] for r in runs), sum(r[2][1] for r in runs)),
+            "sample": sample_launches}
+
+
+def _dad_counts(attention):
+    """The counters the DAD gate reads: row 7, row 8, launches with a
+    multiplier, causal launches, rows 1 + 2."""
+    return (attention.bthd_launch_count, attention.bthd_bwd_launch_count,
+            attention.mult_launch_count, attention.causal_launch_count,
+            attention.launch_count + attention.backward_launch_count)
+
+
+def _dad_gate_run(attention, dm, seed: int, workdir: Path):
+    """One run of the DAD gate with weights from ``seed``: Trainer.fit of 8
+    epochs and Trainer.test; checks its losses and launches and returns
+    (model, test PSNR, fit launches, test launches)."""
+    start = time.perf_counter()
+    model = dad_model(seed)
+    check(tuple(model.latent_size) == (16, 64) and model.n_tokens == 16,
+          f"DAD latent {model.latent_size}")
+    trainer, probe, _, losses, val_psnr, launches = _fit(
+        attention, model, dm, workdir / f"dad_{seed}", 42, max_epochs=DAD_EPOCHS,
+        check_val_every_n_epoch=DAD_EPOCHS)
+    causal = attention.causal_launch_count
+    test, tested = _counted(lambda: _dad_counts(attention), lambda: trainer.test(model, dm))
+    run_s = time.perf_counter() - start
+    psnr = test.get("test/metrics/psnr", float("nan"))
+    n_steps = dm.steps_per_epoch("train")
+    val_batches, test_batches = dm.steps_per_epoch("val"), dm.steps_per_epoch("test")
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    print(f"DAD gate, weights from seed {seed}: {DAD_EPOCHS} epochs x {n_steps} steps at "
+          f"batch 50, dropout 0.1, loss (mean of 20) {first:.4f} -> {last:.4f}, val PSNR "
+          f"{val_psnr:.3f} dB, test PSNR {psnr:.3f} dB (floor {DAD_PSNR} dB); launches fit "
+          f"{launches}, causal {causal}, test (row 7, row 8, mult, causal, rows 1+2) "
+          f"{tested}; fit + test {run_s:.1f} s", flush=True)
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"DAD: loss {first} -> {last}")
+    # a step: the encoder, decoder and AR stack, 2 layers each, every launch
+    # with the multiplier (dropout 0.1), the AR stack's causal; a validation
+    # or test batch: the encoder once and the decoder
+    steps = probe.steps()
+    bad = [i for i, st in enumerate(steps) if st[:3] != (6, 6, 12) or st[4] != 4]
+    check(len(steps) == DAD_EPOCHS * n_steps and not bad,
+          f"DAD: steps {bad[:5]} launched (row 7, row 8, mult, copies, causal) "
+          f"{[steps[i] for i in bad[:5]]}, expected (6, 6, 12, *, 4)")
+    check(launches == {"forward": 6 * DAD_EPOCHS * n_steps + 4 * val_batches,
+                       "backward": 6 * DAD_EPOCHS * n_steps,
+                       "mult": 12 * DAD_EPOCHS * n_steps}
+          and causal == 4 * DAD_EPOCHS * n_steps and tested == (4 * test_batches, 0, 0, 0, 0),
+          f"DAD: launches fit {launches}, causal {causal}, test {tested}")
+    return model, psnr, launches, tested
+
+
+def phase_dad(attention, seed: int, workdir: Path):
+    """The DAD gate whole (tests/test_dad.py, configs/dad/defaults.yaml's
+    model): Trainer.fit of 8 epochs, Trainer.test, 4 samples through
+    model.sample, the KV-cached sampler against the unrolled oracle, served
+    through InferenceEngine; the launches of rows 7 and 8 per step (with the
+    multiplier, causal), per validation and test batch and per sample."""
+    from ot_vae_tpu_torch.data import MNIST
+
+    def counts():
+        return _dad_counts(attention)
+
+    start = time.perf_counter()
+    dm = MNIST(train_batch_size=50, val_batch_size=50, test_batch_size=50, seed=42,
+               synthetic_train=2500, synthetic_test=600)
+    dm.setup()
+    model, psnr, launches, tested = _dad_gate_run(attention, dm, seed, workdir)
+    check(math.isfinite(psnr) and psnr > DAD_PSNR, f"DAD: test PSNR {psnr}, floor {DAD_PSNR}")
+
+    model.net.eval()
+    model.inference = True
+    sample_launches = 0
+    with torch.no_grad():
+        samples, n = _counted(counts, lambda: model.sample(4, _cuda_gen(seed)))
+        check(tuple(samples.shape) == (4, 28, 28, 1) and bool(torch.isfinite(samples).all())
+              and n == (4, 0, 0, 2, 0), f"DAD samples: {tuple(samples.shape)}, launches {n}")
+        sample_launches += n[0]
+        # the cached sampler: a full-length AR decode call (2 causal
+        # launches), 15 single-token steps on the plain path (none), the
+        # decoder (2); the oracle: 15 full AR forwards (30 causal) and the
+        # decoder
+        fast, n_fast = _counted(counts, lambda: model.net.cached_sample(8, _cuda_gen(seed + 3)))
+        slow, n_slow = _counted(counts, lambda: model.net.ancestral_sample(
+            8, _cuda_gen(seed + 3)))
+        err = (fast - slow).abs().max().item()
+        check(n_fast == (4, 0, 0, 2, 0) and n_slow == (32, 0, 0, 30, 0),
+              f"DAD samplers: launches cached {n_fast}, oracle {n_slow}")
+        check(bool(torch.isfinite(fast).all()) and err <= DAD_SAMPLER_ATOL,
+              f"DAD: cached sampler vs the oracle {err}")
+        sample_launches += n_fast[0] + n_slow[0]
+        times = {name: time_ms(lambda: fn(8, _cuda_gen(seed + 3)), reps=5)
+                 for name, fn in (("cached", model.net.cached_sample),
+                                  ("oracle", model.net.ancestral_sample))}
+    engine_err, n = _counted(counts, lambda: _engine_matches("DAD", model, 4, seed + 4,
+                                                             (28, 28, 1)))
+    check(n == (8, 0, 0, 4, 0), f"DAD engine.sample: launches {n}")
+    sample_launches += n[0]
+    print(f"DAD sampler, 8 images: cached {times['cached']:.3f} ms, oracle "
+          f"{times['oracle']:.3f} ms; cached vs oracle max abs {err:.3e} (atol "
+          f"{DAD_SAMPLER_ATOL:.0e}); row-7 launches a call 4 cached (2 causal) and 32 oracle "
+          f"(30 causal); engine.sample vs the model's sampler {engine_err:.3e}; phase "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return {"train": (launches["forward"] + tested[0], launches["backward"]),
+            "sample": sample_launches}
+
+
+def phase_slice7_train_card_vs_cpu(seed: int):
+    """Both slice-7 models' first two train steps at batch 4 from the same
+    weights, images, t, ε, Gumbel noise, sampled indices and dropout masks
+    (drawn on the CPU and replayed): f32 on the CPU, on the card (TF32 off)
+    and in f64 on the CPU, as phases 7 and 19."""
+    from ot_vae_tpu_torch.data import ArrayDataset, BaseDatamodule
+    from ot_vae_tpu_torch.trainer import Trainer
+
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 8)
+    cases = [("AutoDiffusion", auto_diffusion_model, 32, (2, 2, 64)),
+             ("DAD", dad_model, 28, None)]
+    for name, build, size, latent in cases:
+        images = [rng.uniform(0, 1, (4, size, size, 1)).astype(np.float32) for _ in range(2)]
+        labels = np.zeros(4, np.int32)
+        times = [rng.uniform(0, 1, 4).astype(np.float32) for _ in images]
+        noise = [None if latent is None else rng.standard_normal((4, *latent)).astype(np.float32)
+                 for _ in images]
+        state = build(seed + 9).state_dict()
+        runs = {}
+        with DrawTape() as tape:
+            for run, device, dtype in (("cpu", "cpu", torch.float32),
+                                       ("card", "cuda", torch.float32),
+                                       ("cpu64", "cpu", torch.float64)):
+                tape.rewind()
+                model = build(seed + 9, dtype)
+                model.load_state_dict(state, strict=True)
+                model.to(dtype)
+                if latent is not None:  # AutoDiffusion: hand t across
+                    _with_times(model, times)
+                trainer = Trainer(device=device, seed=seed)
+                trainer.setup_fit(model, BaseDatamodule(
+                    train_dataset=ArrayDataset(images[0], labels)))
+                losses, grads = [], None
+                for i, (x, eps) in enumerate(zip(images, noise)):
+                    logs, _ = trainer.train_step(model, (x, labels),
+                                                 trainer.generator(1, 0, i), noise=eps,
+                                                 dropout_rng=trainer.generator(4, 0, i))
+                    losses.append(float(logs["train/loss/total"]))
+                    if grads is None:
+                        grads = {k: p.grad.detach().double().cpu()
+                                 for k, p in model.net.named_parameters()
+                                 if p.grad is not None}
+                runs[run] = (losses, grads)
+            drawn = {k: len(v) for k, v in tape.draws.items()}
+        _check_train_runs(f"{name}: draws handed across {drawn}", runs)
+    print(f"slice 7 train card vs CPU: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def _with_times(model, times):
+    """Makes ``model.batch_preprocess`` set each batch's t to the next of
+    ``times``, so every run of phase 30 trains on the same t."""
+    queue, preprocess = list(times), model.batch_preprocess
+
+    def with_time(batch, train: bool = True, generator=None):
+        pbatch = preprocess(batch, train, generator)
+        t = torch.from_numpy(queue.pop(0)).to(pbatch["samples"].device)
+        pbatch["kwargs"] = {**pbatch["kwargs"], "time": t}
+        return pbatch
+
+    model.batch_preprocess = with_time
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -2676,6 +3129,10 @@ def main(argv=None) -> int:
         phase_ot_core(args.seed, smi)
         cifar_transport = phase_cifar_vit_transport(attention, args.seed, workdir)
         shutil.rmtree(workdir, ignore_errors=True)
+        auto_diffusion = phase_auto_diffusion(attention, args.seed, workdir)
+        dad = phase_dad(attention, args.seed, workdir)
+        shutil.rmtree(workdir, ignore_errors=True)
+        phase_slice7_train_card_vs_cpu(args.seed)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2687,11 +3144,15 @@ def main(argv=None) -> int:
         "source": "ot_vae_tpu_torch/ops/csrc/attention_packed.cu",
         "replaces": "ot_vae_tpu/ops/attention_pallas.py:255",
         "launches": (launches + train_launches["forward"] + transport_launches[0]
-                     + vae_launches[0]),
+                     + vae_launches[0] + auto_diffusion["train"][0]
+                     + auto_diffusion["sample"]),
         "launches_by_path": {"serve": launches, "train": train_launches["forward"],
                              "mnist32_transport": transport_launches[0],
                              "mnist32_vae": vae_launches[0], "vit_cifar10_serve": 0,
-                             "vit_ffhq128_serve": 0},
+                             "vit_ffhq128_serve": 0,
+                             "auto_diffusion_train": auto_diffusion["train"][0],
+                             "auto_diffusion_sample": auto_diffusion["sample"],
+                             "dad_train": 0, "dad_sample": 0},
         "max_abs_err": max(worst[torch.bfloat16], small_worst[("out", torch.bfloat16)]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2703,10 +3164,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "ot_vae_tpu_torch/ops/csrc/attention_packed_bwd.cu",
         "replaces": "ot_vae_tpu/ops/attention_pallas.py:279",
-        "launches": train_launches["backward"] + transport_launches[1] + vae_launches[1],
+        "launches": (train_launches["backward"] + transport_launches[1] + vae_launches[1]
+                     + auto_diffusion["train"][1]),
         "launches_by_path": {"serve": 0, "train": train_launches["backward"],
                              "mnist32_transport": transport_launches[1],
-                             "mnist32_vae": vae_launches[1]},
+                             "mnist32_vae": vae_launches[1],
+                             "auto_diffusion_train": auto_diffusion["train"][1],
+                             "auto_diffusion_sample": 0, "dad_train": 0},
         "max_abs_err": max(bwd_worst[torch.bfloat16], small_worst[("dqkv", torch.bfloat16)]),
         "ms": bwd_shape["ms"],
         "plain_ms": bwd_shape["plain_ms"],
@@ -2732,11 +3196,13 @@ def main(argv=None) -> int:
              {"vit_cifar10_serve": cifar_launches, "vit_ffhq128_serve": ffhq_launches,
               "vit_cifar10_train": cifar_train["forward"],
               "vit_ffhq128_train": ffhq_train["forward"],
-              "vit_cifar10_transport": cifar_transport["forward"]}),
+              "vit_cifar10_transport": cifar_transport["forward"],
+              "auto_diffusion_train": 0, "auto_diffusion_sample": 0,
+              "dad_train": dad["train"][0], "dad_sample": dad["sample"]}),
             ("bhtc", "ot_vae_tpu/ops/attention_pallas.py:109",
              {"vit_cifar10_serve": 0, "vit_ffhq128_serve": 0, "vit_cifar10_train": 0,
-              "vit_ffhq128_train": 0, "vit_cifar10_transport": 0,
-              "fused_attention_entry": bhtc_launches})):
+              "vit_ffhq128_train": 0, "vit_cifar10_transport": 0, "dad_train": 0,
+              "dad_sample": 0, "fused_attention_entry": bhtc_launches})):
         row = bthd_timings[(kind, 4)]  # the FFHQ128 ViT encoder's layer
         kernels.append({
             "name": f"attention_{kind}_fwd",
@@ -2756,10 +3222,11 @@ def main(argv=None) -> int:
             ("bthd", "ot_vae_tpu/ops/attention_pallas.py:710",
              {"vit_cifar10_train": cifar_train["backward"],
               "vit_ffhq128_train": ffhq_train["backward"],
-              "vit_cifar10_transport": cifar_transport["backward"]}),
+              "vit_cifar10_transport": cifar_transport["backward"],
+              "auto_diffusion_train": 0, "dad_train": dad["train"][1]}),
             ("bhtc", "ot_vae_tpu/ops/attention_pallas.py:130",
              {"vit_cifar10_train": 0, "vit_ffhq128_train": 0, "vit_cifar10_transport": 0,
-              "fused_attention_entry": bhtc_bwd_launches})):
+              "dad_train": 0, "fused_attention_entry": bhtc_bwd_launches})):
         row = bwd_bthd_timings[(kind, 4)]  # the FFHQ128 ViT encoder's layer, batch 32
         kernels.append({
             "name": f"attention_{kind}_bwd",

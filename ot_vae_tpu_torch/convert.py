@@ -11,8 +11,16 @@ by the kind of module that holds it, which flax's names carry (``Conv_<i>``,
   ``weight``/``bias``/``running_mean``/``running_var``;
 - every other module (the ViT's ``Dense``, ``LayerNorm``, ``Embed`` and
   attention projections, its raw ``embed_token``, the conditional prior's
-  ``mu`` and ``log_std``) keeps flax's names and layouts: a Dense kernel is
-  [in, out], an attention projection's [dim, H, d] or [H, d, dim].
+  ``mu`` and ``log_std``, ``EqualDense``, the Gaussian Fourier projection's
+  ``weight``) keeps flax's names and layouts: a Dense kernel is [in, out],
+  an attention projection's [dim, H, d] or [H, d, dim];
+- the codebook prior's learned codebook (``params/.../codebook``) is the
+  parameter ``atoms``, and its k-means state (``prior_stats/.../codebook``,
+  a ``CodebookState``) the buffers ``kmeans.codebook``, ``kmeans.n_obs``,
+  ``kmeans.s1`` and ``kmeans.initialized``.
+
+The ``cache`` collection (attention KV caches) is runtime state: it is not
+carried across.
 :func:`state_dict_to_jax_variables` is the inverse, so tests can hold trained
 parameters and running statistics against the JAX package's key by key.
 
@@ -23,6 +31,7 @@ operator state, leaf by leaf under the same names.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -38,7 +47,9 @@ _BATCH_NORM = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 _CONV = {"kernel": "weight", "bias": "bias"}
 # leaves of the modules that keep flax's names, and the ranks a kernel takes
 _FLAX = {name: name for name in ("kernel", "bias", "scale", "embedding", "embed_token",
-                                 "mu", "log_std")}
+                                 "mu", "log_std", "weight")}
+_FLAX["codebook"] = "atoms"
+_KMEANS = ("codebook", "n_obs", "s1", "initialized")
 _FLAX_KERNEL_RANKS = (2, 3)
 
 
@@ -56,6 +67,8 @@ def _kind(parents) -> str:
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
     flat = {}
     for k, v in tree.items():
+        if dataclasses.is_dataclass(v):  # a state of the JAX package (CodebookState)
+            v = {f.name: getattr(v, f.name) for f in dataclasses.fields(v)}
         if isinstance(v, Mapping):
             flat.update(_flatten(v, prefix + (k,)))
         else:
@@ -64,12 +77,19 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
 
 
 def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` nested dicts of arrays → a
-    state dict of float32 tensors."""
-    unknown = set(variables) - {"params", "batch_stats"}
+    """``{"params": ..., "batch_stats": ..., "prior_stats": ...}`` nested
+    dicts of arrays → a state dict of float32 tensors (a ``cache``
+    collection is left out)."""
+    unknown = set(variables) - {"params", "batch_stats", "prior_stats", "cache"}
     if unknown:
         raise ValueError(f"no mapping for variable collections {sorted(unknown)}")
     state = {}
+    for path, value in _flatten(variables.get("prior_stats", {})).items():
+        *parents, owner, leaf = path
+        if owner != "codebook" or leaf not in _KMEANS:
+            raise ValueError(f"no mapping for prior_stats/{'/'.join(path)}")
+        state[".".join([*parents, "kmeans", leaf])] = torch.from_numpy(
+            np.array(value, np.float32))
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})).items():
             *parents, leaf = path
@@ -101,15 +121,22 @@ _BATCH_NORM_INV = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                    "running_mean": ("batch_stats", "mean"),
                    "running_var": ("batch_stats", "var")}
 _CONV_INV = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
-_FLAX_INV = {name: ("params", name) for name in _FLAX}
+_FLAX_INV = {port: ("params", name) for name, port in _FLAX.items()}
 
 
 def state_dict_to_jax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """A state dict → ``{"params": ..., "batch_stats": ...}`` nested dicts of
-    float32 numpy arrays in the JAX package's layout (conv kernels HWIO)."""
+    """A state dict → ``{"params": ..., "batch_stats": ...}`` (and
+    ``"prior_stats"`` for a k-means codebook) nested dicts of float32 numpy
+    arrays in the JAX package's layout (conv kernels HWIO)."""
     variables: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, tensor in state.items():
         *parents, leaf = key.split(".")
+        if parents and parents[-1] == "kmeans":
+            node = variables.setdefault("prior_stats", {})
+            for p in [*parents[:-1], "codebook"]:
+                node = node.setdefault(p, {})
+            node[leaf] = tensor.detach().float().cpu().numpy()
+            continue
         kind = _kind(parents)
         names = {"batch_norm": _BATCH_NORM_INV, "conv": _CONV_INV, "flax": _FLAX_INV}[kind]
         if leaf not in names:

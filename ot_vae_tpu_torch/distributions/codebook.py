@@ -18,7 +18,7 @@ from ot_vae_tpu_torch.ops.w2 import sinkhorn_log
 from ot_vae_tpu_torch.utils import ema, laplace_smoothing
 
 __all__ = ["CodebookState", "CodebookModel", "Assignment", "assign_from_energy",
-           "kmeanspp_init"]
+           "gumbel_noise", "kmeanspp_init"]
 
 _EPS = 1e-8
 
@@ -48,12 +48,24 @@ def _categorical(probs: torch.Tensor, generator: Optional[torch.Generator],
     return idx.reshape(*probs.shape[:-1], n) if n else idx.reshape(probs.shape[:-1])
 
 
+def gumbel_noise(shape, generator: torch.Generator, device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard Gumbel draws −log(−log U), U uniform in [tiny, 1), as
+    ``jax.random.gumbel`` draws them; the one Gumbel draw of the assignment
+    modes."""
+    u = torch.rand(tuple(shape), generator=generator, device=device, dtype=dtype)
+    return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(dtype).tiny)))
+
+
 def assign_from_energy(energy: torch.Tensor, mode: str, n_components: int,
                        temperature: float = 1.0, topk: Optional[int] = None,
                        generator: Optional[torch.Generator] = None) -> Assignment:
     """Assignment weights from an energy [*L, B, K] under ``mode``: "mean"
-    (the softmax), "argmax" or "sample" (one-hot). The Gumbel modes arrive
-    with the codebook prior (slice 7)."""
+    (the softmax), "argmax" or "sample" (one-hot), "gumbel-softmax" (the
+    softmax of the energy plus Gumbel noise, at ``temperature``) or
+    "gumbel-hardmax" (its one-hot forward with the soft gradient: the
+    straight-through estimator). ``generator`` draws the indices, then the
+    Gumbel noise; the Gumbel modes need it."""
     if topk is not None and topk > 0:
         kth = torch.sort(energy, dim=-1).values[..., -topk][..., None]
         energy = torch.where(energy >= kth, energy, torch.full_like(energy, -torch.inf))
@@ -73,9 +85,15 @@ def assign_from_energy(energy: torch.Tensor, mode: str, n_components: int,
     elif mode == "argmax":
         weights = one_hot(torch.argmax(probs, dim=-1))
     elif "gumbel" in mode:
-        raise NotImplementedError(
-            f"assignment mode={mode}: the Gumbel modes arrive with the codebook prior "
-            "(slice 7, ROADMAP)")
+        if generator is None:
+            raise ValueError("gumbel assignment modes require a generator")
+        g = gumbel_noise(energy.shape, generator, energy.device, probs.dtype)
+        soft = torch.softmax((energy + g) / temperature, dim=-1)
+        if "hard" in mode:
+            hard = one_hot(torch.argmax(soft, dim=-1))
+            weights = soft + (hard - soft).detach()  # hard forward, soft gradient
+        else:
+            weights = soft
     else:
         raise NotImplementedError(f"assignment mode={mode}")
     return Assignment(weights, indices, probs)

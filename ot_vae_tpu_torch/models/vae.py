@@ -11,12 +11,18 @@ Where no generator and no ε are given, ``forward`` and ``encode`` draw ε
 from a fresh generator seeded 0 on every call, as the JAX package uses
 ``PRNGKey(0)`` there: two calls on one input agree.
 
-Conditioning (``labels``) reaches only the nets whose ``forward`` (or the
-autoencoder's ``encode``/``decode``) accepts it, as ``_call_net`` does in the
-JAX package, and always the prior; a conditional ``VAE`` hands each batch's
-labels on as ``kwargs``. The train step's dropout generator
-(``dropout_rng``) reaches the nets that accept one the same way, as the JAX
-``loss_fn`` hands its ``dropout`` key to the nets' apply.
+Conditioning (``labels``, and ``time`` for a time-conditioned model)
+reaches only the nets whose ``forward`` (or the autoencoder's
+``encode``/``decode``) accepts it, as ``_call_net`` does in the JAX package,
+and always the prior; a conditional ``VAE`` hands each batch's labels on as
+``kwargs``. The train step's dropout generator (``dropout_rng``) reaches the
+nets that accept one the same way, as the JAX ``loss_fn`` hands its
+``dropout`` key to the nets' apply.
+
+Subclasses extend three hooks, as in the JAX package: ``batch_preprocess``
+(AutoDiffusion draws t there), ``prior_loss`` and ``_loss_aux`` (DAD's
+autoregressive logits), and ``sample_fn``, the one route ``VAE.sample`` and
+``InferenceEngine.sample`` take to a model's sampler.
 """
 from __future__ import annotations
 
@@ -33,12 +39,12 @@ from ot_vae_tpu_torch.utils import mean_replicated_batch, replicate_batch
 __all__ = ["VAENet", "VAE"]
 
 
-_ROUTED = ("labels", "dropout_rng")
+_ROUTED = ("labels", "time", "dropout_rng")
 
 
 def _accepted(fn) -> frozenset:
-    """Which of ``labels`` and ``dropout_rng`` ``fn`` (a module's ``forward``
-    or a method) accepts."""
+    """Which of ``labels``, ``time`` and ``dropout_rng`` ``fn`` (a module's
+    ``forward`` or a method) accepts."""
     target = fn.forward if isinstance(fn, nn.Module) else fn
     return frozenset(_ROUTED) & frozenset(inspect.signature(target).parameters)
 
@@ -90,22 +96,26 @@ class VAENet(nn.Module):
                noise: Optional[torch.Tensor] = None, expand: int = 1,
                step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False,
                labels: Optional[torch.Tensor] = None,
-               dropout_rng: Optional[torch.Generator] = None):
+               dropout_rng: Optional[torch.Generator] = None,
+               time: Optional[torch.Tensor] = None):
         """z, or (z, per-sample prior loss, artifacts) with ``return_artifacts``.
-        The batch (and ``labels``) is replicated ``expand``× before the draw."""
-        return self.reparametrize(self.features(x, labels, dropout_rng), generator, noise,
-                                  expand, step, return_artifacts, labels)
+        The batch (with ``labels`` and ``time``) is replicated ``expand``×
+        before the draw."""
+        return self.reparametrize(self.features(x, labels, dropout_rng, time), generator,
+                                  noise, expand, step, return_artifacts, labels, time)
 
     def features(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
-                 dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                 dropout_rng: Optional[torch.Generator] = None,
+                 time: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The encoder's output, before the prior."""
         return _call_net(self._encode_net, self._encode_accepts, x, labels=labels,
-                         dropout_rng=dropout_rng)
+                         time=time, dropout_rng=dropout_rng)
 
     def reparametrize(self, enc: torch.Tensor, generator: Optional[torch.Generator] = None,
                       noise: Optional[torch.Tensor] = None, expand: int = 1,
                       step: Union[int, torch.Tensor] = 0, return_artifacts: bool = False,
-                      labels: Optional[torch.Tensor] = None):
+                      labels: Optional[torch.Tensor] = None,
+                      time: Optional[torch.Tensor] = None):
         """The prior's draw of z from the encoder's output; see ``encode``."""
         enc = replicate_batch(enc, expand)
         if self.prior is None:
@@ -114,31 +124,39 @@ class VAENet(nn.Module):
             if generator is None and noise is None:
                 generator = seeded_generator(0, enc.device)  # JAX: PRNGKey(0)
             z, loss, artifacts = self.prior(enc, step, generator=generator, noise=noise,
-                                            labels=replicate_batch(labels, expand))
+                                            labels=replicate_batch(labels, expand),
+                                            time=replicate_batch(time, expand))
         return (z, loss, artifacts) if return_artifacts else z
 
     def decode(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None,
-               expand: int = 1, dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+               expand: int = 1, dropout_rng: Optional[torch.Generator] = None,
+               time: Optional[torch.Tensor] = None) -> torch.Tensor:
         return _call_net(self._decode_net, self._decode_accepts, z,
-                         labels=replicate_batch(labels, expand), dropout_rng=dropout_rng)
+                         labels=replicate_batch(labels, expand),
+                         time=replicate_batch(time, expand), dropout_rng=dropout_rng)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None, expand: int = 1,
-                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
-        z = self.encode(x, generator, noise, expand, labels=labels)
-        return self.decode(z, labels, expand)
+                labels: Optional[torch.Tensor] = None,
+                time: Optional[torch.Tensor] = None) -> torch.Tensor:
+        z = self.encode(x, generator, noise, expand, labels=labels, time=time)
+        return self.decode(z, labels, expand, time=time)
 
     def sample_latents(self, batch_size: int, generator: Optional[torch.Generator] = None,
-                       labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       labels: Optional[torch.Tensor] = None,
+                       time: Optional[torch.Tensor] = None) -> torch.Tensor:
         shape = (batch_size, *self.latent_size)
         device = next(self.parameters()).device
         if self.prior is None:
             return torch.randn(shape, generator=generator, device=device)
-        return self.prior.sample(shape, generator=generator, device=device, labels=labels)
+        return self.prior.sample(shape, generator=generator, device=device, labels=labels,
+                                 time=time)
 
     def sample(self, batch_size: int, generator: Optional[torch.Generator] = None,
-               labels: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.decode(self.sample_latents(batch_size, generator, labels), labels)
+               labels: Optional[torch.Tensor] = None,
+               time: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decode(self.sample_latents(batch_size, generator, labels, time), labels,
+                           time=time)
 
 
 class VAE(VisionModel):
@@ -177,9 +195,9 @@ class VAE(VisionModel):
         holds the labels of a conditional model. A training batch first
         passes through ``progressive_transform``, the curriculum that
         :class:`ot_vae_tpu_torch.data.progressive.ProgressiveTransform` sets,
-        which draws from ``generator`` (the train step's preprocessing draw,
-        the JAX step's ``k_pre``); samples and target are both the
-        transformed images."""
+        which draws from ``generator`` (the step's preprocessing draw, the
+        JAX step's ``k_pre``; the eval steps hand one too, which a plain VAE
+        does not use); samples and target are both the transformed images."""
         samples, labels = batch[0], batch[1]
         if train and self.progressive_transform is not None:
             samples = self.progressive_transform(samples, generator)
@@ -190,8 +208,17 @@ class VAE(VisionModel):
         acc = torch.promote_types(reconstructions.dtype, torch.float32)
         return torch.mean((reconstructions.to(acc) - target.to(acc)) ** 2)
 
-    def prior_loss(self, prior_loss: torch.Tensor, prior_artifacts=None) -> torch.Tensor:
+    def prior_loss(self, prior_loss: torch.Tensor, prior_artifacts=None, aux=None,
+                   **kwargs) -> torch.Tensor:
+        """The batch's prior term from the per-sample prior loss; ``aux`` is
+        what ``_loss_aux`` returned, ``kwargs`` the batch's."""
         return torch.mean(prior_loss)
+
+    def _loss_aux(self, pbatch, z, prior_loss, prior_artifacts,
+                  dropout_rng: Optional[torch.Generator] = None):
+        """Extra computation in the train forward, after the decoder, handed
+        to ``prior_loss`` as ``aux`` (DAD's autoregressive logits)."""
+        return None
 
     def loss_fn(self, pbatch: Dict[str, torch.Tensor], step: Union[int, torch.Tensor] = 0,
                 generator: Optional[torch.Generator] = None,
@@ -215,14 +242,17 @@ class VAE(VisionModel):
                                                step, return_artifacts=True,
                                                dropout_rng=dropout_rng, **kwargs)
         recon = self.net.decode(z, expand=self.expansion, dropout_rng=dropout_rng, **kwargs)
+        aux = self._loss_aux(pbatch, z, ploss, partifacts, dropout_rng)
         recon_mean = mean_replicated_batch(recon, self.expansion)
-        p_loss = self.prior_loss(ploss, partifacts) / math.prod(samples.shape[1:])
+        p_loss = (self.prior_loss(ploss, partifacts, aux=aux, **kwargs)
+                  / math.prod(samples.shape[1:]))
         r_loss = self.recon_loss(recon_mean, target)
         loss = r_loss + p_loss
         logs = {"train/loss/total": loss.detach(), "train/loss/recon": r_loss.detach(),
                 "train/loss/prior": p_loss.detach()}
         outputs = {**pbatch, "preds": recon[:batch_size], "latents": z[:batch_size],
-                   "preds_mean": recon_mean}
+                   "preds_mean": recon_mean,
+                   **{k: v for k, v in partifacts.items() if isinstance(v, torch.Tensor)}}
         return loss, logs, outputs
 
     @torch.no_grad()
@@ -263,11 +293,17 @@ class VAE(VisionModel):
     def decode(self, z: torch.Tensor, **kwargs) -> torch.Tensor:
         return self.maybe_postprocess(self.net.decode(z, **kwargs))
 
+    def sample_fn(self, batch_size: int, generator: Optional[torch.Generator] = None,
+                  **kwargs) -> torch.Tensor:
+        """The model's sampler, before the inference transforms: draws from
+        the prior, decoded. Subclasses put their own sampler here."""
+        return self.net.sample(batch_size, generator, **kwargs)
+
     def sample(self, batch_size: int, generator: Optional[torch.Generator] = None,
                **kwargs) -> torch.Tensor:
         if generator is None:
             generator = self.default_generator()
-        return self.maybe_postprocess(self.net.sample(batch_size, generator, **kwargs))
+        return self.maybe_postprocess(self.sample_fn(batch_size, generator, **kwargs))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:

@@ -14,6 +14,7 @@ and nothing draws from torch's global generator.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -29,16 +30,20 @@ from ot_vae_tpu_torch.ops.attention import (
 
 __all__ = [
     "div_sqrt",
+    "lecun_normal",
     "get_activation",
     "BatchNorm",
     "Normalization",
     "EqualConv",
+    "EqualDense",
+    "GaussianFourierProjection",
     "spatial_attention",
     "Dense",
     "LayerNorm",
     "Embed",
     "dropout_keep",
     "Dropout",
+    "KVCache",
     "MultiHeadDotProductAttention",
     "mha_attention_fn",
     "dot_product_attention",
@@ -68,6 +73,18 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     if "silu" in name or "swish" in name:
         return F.silu
     raise NotImplementedError(f"activation={name} not supported")
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal(*shape: int, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at 2 standard deviations,
+    rescaled to std 1/sqrt(``fan_in``), drawn from torch's generator. The
+    default of flax's Dense, DenseGeneral and Conv kernels."""
+    w = nn.init.trunc_normal_(torch.empty(*shape), 0.0, 1.0, -2.0, 2.0)
+    return w / (math.sqrt(fan_in) * _TRUNCATED_STD)
 
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default
@@ -136,7 +153,7 @@ class _ConvParams(nn.Module):
     def __init__(self, shape: Sequence[int], use_bias: bool):
         super().__init__()
         fan_in = shape[1] * shape[2] * shape[3]
-        self.weight = nn.Parameter(torch.randn(*shape) / math.sqrt(fan_in))
+        self.weight = nn.Parameter(lecun_normal(*shape, fan_in=fan_in))
         self.bias = nn.Parameter(torch.zeros(shape[0])) if use_bias else None
 
 
@@ -190,6 +207,55 @@ class EqualConv(nn.Module):
                         self.stride, pad, groups=self.groups)
 
 
+class EqualDense(nn.Module):
+    """Dense layer with an equalized learning rate: the kernel [in, out] is
+    drawn at std 1/``lr_mult`` and scaled by lr_mult / sqrt(in) at run time,
+    the bias by ``lr_mult``."""
+
+    def __init__(self, in_features: int, features: int, lr_mult: float = 1.0,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.lr_mult, self.dtype = lr_mult, dtype
+        self.scale = float(lr_mult / math.sqrt(in_features))
+        self.kernel = nn.Parameter(torch.randn(in_features, features) / lr_mult)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(self.dtype) @ (self.kernel * self.scale).to(self.dtype)
+        if self.bias is not None:
+            y = y + (self.bias * self.lr_mult).to(self.dtype)
+        return y
+
+
+class GaussianFourierProjection(nn.Module):
+    """Gaussian random features of a time t in [0, 1]: [sin, cos] of
+    t·w·2π with w [1, dim // 2] drawn at std ``scale``, then, with
+    ``out_dim``, ``n_layers`` Dense layers with a ReLU between them. Without
+    ``trainable`` no gradient reaches ``weight``."""
+
+    def __init__(self, dim: int, out_dim: Optional[int] = None, n_layers: int = 3,
+                 scale: float = 30.0, trainable: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.trainable, self.scale = trainable, scale
+        self.weight = nn.Parameter(torch.randn(1, dim // 2) * scale)
+        self.n_layers = 0 if out_dim is None else n_layers
+        for i in range(self.n_layers):
+            setattr(self, f"Dense_{i}", Dense(out_dim if i else 2 * (dim // 2), out_dim, dtype))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        if t.dim() != 1:
+            raise ValueError("`t` is expected to be 1-dimensional")
+        w = self.weight if self.trainable else self.weight.detach()
+        # the JAX order of operations: the argument reaches hundreds of
+        # radians, where another rounding order shows in the output
+        proj = t[:, None] * w * 2.0 * math.pi
+        h = torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+        for i in range(self.n_layers):
+            h = getattr(self, f"Dense_{i}")(F.relu(h) if i else h)
+        return h
+
+
 def spatial_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Multi-head self-attention over flattened spatial positions.
 
@@ -216,7 +282,7 @@ class Dense(nn.Module):
     def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.randn(in_features, features) / math.sqrt(in_features))
+        self.kernel = nn.Parameter(lecun_normal(in_features, features, fan_in=in_features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -275,7 +341,7 @@ class _HeadProjection(nn.Module):
         self.merge, self.dtype = merge, dtype
         shape = (heads, head_dim, dim) if merge else (dim, heads, head_dim)
         fan_in = heads * head_dim if merge else dim
-        self.kernel = nn.Parameter(torch.randn(*shape) / math.sqrt(fan_in))
+        self.kernel = nn.Parameter(lecun_normal(*shape, fan_in=fan_in))
         self.bias = nn.Parameter(torch.zeros(dim if merge else (heads, head_dim)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -404,12 +470,32 @@ def mha_attention_fn(query, key, value, bias=None, mask=None,
                                  deterministic=deterministic, dtype=dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class KVCache:
+    """One attention layer's decode cache, flax's ``cache`` collection:
+    keys and values [B, T_max, H, d] and ``index``, the next position a
+    single-token call writes."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    index: int
+
+
 class MultiHeadDotProductAttention(nn.Module):
     """flax ``nn.MultiHeadDotProductAttention`` with ``attention_fn`` =
     :func:`mha_attention_fn`: projections ``query``, ``key``, ``value``
     (kernels [dim, H, d], biases [H, d]) and ``out`` (kernel [H, d, dim],
     bias [dim]), d = dim / H. Attention dropout is off in eval mode; in
-    train mode it draws from ``dropout_rng``."""
+    train mode it draws from ``dropout_rng``.
+
+    ``decode=True`` follows flax's KV cache with the state passed in and
+    returned, ``(out, cache)``: without a ``cache`` the call attends as
+    usual and returns a zeroed cache sized like its keys, index 0; with one,
+    the call holds one token, writes its key and value at ``cache.index``,
+    attends over the positions up to it (the plain attention, as flax's
+    single-token calls take its stock path) and returns the cache advanced
+    by one. The cache given is not changed.
+    """
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0, causal_hint: bool = False):
@@ -424,11 +510,27 @@ class MultiHeadDotProductAttention(nn.Module):
         self.out = _HeadProjection(dim, num_heads, head_dim, True, dtype)
 
     def forward(self, inputs_q: torch.Tensor, inputs_kv: Optional[torch.Tensor] = None,
-                mask=None, dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                mask=None, dropout_rng: Optional[torch.Generator] = None,
+                decode: bool = False, cache: Optional[KVCache] = None):
         inputs_kv = inputs_q if inputs_kv is None else inputs_kv
-        x = mha_attention_fn(self.query(inputs_q), self.key(inputs_kv),
-                             self.value(inputs_kv), mask=mask, dropout_rng=dropout_rng,
+        query, key, value = self.query(inputs_q), self.key(inputs_kv), self.value(inputs_kv)
+        new_cache = None
+        if decode and cache is None:
+            new_cache = KVCache(torch.zeros_like(key), torch.zeros_like(value), 0)
+        elif decode:
+            b, t_max, h, d = cache.key.shape
+            if tuple(query.shape) != (b, 1, h, d):
+                raise ValueError(f"a cached decode call takes one token: query "
+                                 f"{tuple(query.shape)}, expected {(b, 1, h, d)}")
+            at = torch.tensor([cache.index], device=key.device)
+            key = cache.key.index_copy(1, at, key.to(cache.key.dtype))
+            value = cache.value.index_copy(1, at, value.to(cache.value.dtype))
+            new_cache = KVCache(key, value, cache.index + 1)
+            seen = (torch.arange(t_max, device=key.device) <= cache.index)[None, None, None]
+            mask = seen if mask is None else mask.bool() & seen
+        x = mha_attention_fn(query, key, value, mask=mask, dropout_rng=dropout_rng,
                              dropout_rate=self.dropout_rate,
                              deterministic=not self.training, dtype=self.dtype,
                              causal_hint=self.causal_hint)
-        return self.out(x)
+        out = self.out(x)
+        return (out, new_cache) if decode else out

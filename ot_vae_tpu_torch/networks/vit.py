@@ -17,8 +17,17 @@ attention weights, after the attention, after the MLP's ReLU and after its
 second Dense (``dropout``), each drawn from the generator that
 ``ViT.forward`` takes as ``dropout_rng``, in flax's order.
 
-Not ported yet: ``time_dependant`` and the ``decode=True`` KV-cache path
-and ``AutoRegressive`` (slice 7: AutoDiffusion and DAD).
+``causal_mask`` masks every self-attention causally (the layers' causal
+hint, so rows 7 and 8 mask in the kernel); ``time_dependant`` appends a
+trainable Gaussian Fourier ``time_token`` after the class token.
+``decode=True`` is the KV-cached path of an autoregressive stack (causal,
+no cross-attention, token embeddings in): it returns ``(out, caches)``, one
+:class:`~ot_vae_tpu_torch.networks.nets_utils.KVCache` a layer. Without
+``caches`` the call runs the causal forward and returns zeroed caches; with
+them it takes one token at ``positions`` and returns the caches advanced.
+The embed, class and time streams are left out there: they follow the input
+tokens, so under the causal mask they never reach an input token's output.
+:class:`AutoRegressive` adds the vocabulary embedding and the LM head.
 """
 from __future__ import annotations
 
@@ -33,13 +42,13 @@ from ot_vae_tpu_torch.networks.nets_utils import (
     Dense,
     Dropout,
     Embed,
+    GaussianFourierProjection,
+    KVCache,
     LayerNorm,
     MultiHeadDotProductAttention,
 )
 
 __all__ = ["PositionalEmbedding", "TransformerLayer", "ViT", "AutoRegressive"]
-
-_SLICE_7 = "arrives with slice 7 (AutoDiffusion and DAD)"
 
 
 def pair(t):
@@ -57,11 +66,15 @@ class PositionalEmbedding(nn.Module):
         self.LayerNorm_0 = LayerNorm(d_model, dtype)
         self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor,
-                dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rng: Optional[torch.Generator] = None,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``positions`` replaces the position ids ``arange(T)``: a cached
+        decode call's one token sits at the position its caller tracks."""
         if x.shape[-1] != self.d_model:
             raise ValueError("feature dim of `x` must equal d_model")
-        pos = self.Embed_0(torch.arange(x.shape[-2], device=x.device))
+        if positions is None:
+            positions = torch.arange(x.shape[-2], device=x.device)
+        pos = self.Embed_0(torch.as_tensor(positions, device=x.device))
         return self.dropout(self.LayerNorm_0(x + pos), dropout_rng)
 
 
@@ -92,9 +105,15 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_rng: Optional[torch.Generator] = None, decode: bool = False,
+                cache: Optional[KVCache] = None):
+        """The block's output; with ``decode``, ``(output, cache)`` as
+        :class:`MultiHeadDotProductAttention` returns its cache."""
         drop = functools.partial(self.dropout, generator=dropout_rng)
-        h = self.MultiHeadDotProductAttention_0(x, mask=mask, dropout_rng=dropout_rng)
+        h = self.MultiHeadDotProductAttention_0(x, mask=mask, dropout_rng=dropout_rng,
+                                                decode=decode, cache=cache)
+        if decode:
+            h, cache = h
         x = self.LayerNorm_0(x + drop(h))
         if self.cross:
             if memory is None:
@@ -103,17 +122,19 @@ class TransformerLayer(nn.Module):
             x = self.LayerNorm_1(x + drop(h))
         h = self.Dense_1(drop(F.relu(self.Dense_0(x))))
         final = self.LayerNorm_2 if self.cross else self.LayerNorm_1
-        return final(x + drop(h))
+        out = final(x + drop(h))
+        return (out, cache) if decode else out
 
 
 class ViT(nn.Module):
-    """Generalized ViT with input, embed and class token streams.
+    """Generalized ViT with input, embed, class and time token streams.
 
     Arguments as the JAX ``ViT``; ``head_dim`` wins over ``heads`` when set.
-    Forward: ``vit(x, labels=None, dropout_rng=None)`` on NHWC images
-    (``patch_to_embed``) or [B, tokens, dim] embeddings; in train mode with a
-    dropout rate above 0 ``dropout_rng`` (a ``torch.Generator`` on x's
-    device) is required.
+    Forward: ``vit(x, labels=None, time=None, dropout_rng=None)`` on NHWC
+    images (``patch_to_embed``) or [B, tokens, dim] embeddings; in train mode
+    with a dropout rate above 0 ``dropout_rng`` (a ``torch.Generator`` on
+    x's device) is required. ``decode``, ``positions`` and ``caches``: the
+    KV-cached path (module docstring).
     """
 
     def __init__(self, image_size: Union[int, Tuple[int, int]], dim: int,
@@ -127,10 +148,7 @@ class ViT(nn.Module):
                  num_classes: Optional[int] = None, time_dependant: bool = False,
                  causal_mask: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if time_dependant:
-            raise NotImplementedError(f"time_dependant ViT {_SLICE_7}")
-        if causal_mask:
-            raise NotImplementedError(f"the causal ViT {_SLICE_7}")
+        self.time_dependant, self.causal_mask = time_dependant, causal_mask
         self.image_size, self.dim, self.patch_size = image_size, dim, patch_size
         self.depth, self.preprocess_depth, self.heads = depth, preprocess_depth, heads
         self.head_dim, self.channels = head_dim, channels
@@ -147,13 +165,16 @@ class ViT(nn.Module):
             self.embed_token = nn.Parameter(torch.randn(1, p["n_tokens"]["embed"], dim))
         if num_classes is not None:
             self.class_token = Embed(num_classes, dim, dtype)
+        if time_dependant:
+            self.time_token = GaussianFourierProjection(dim, trainable=True, dtype=dtype)
         self.PositionalEmbedding_0 = PositionalEmbedding(p["total"], dim, emb_dropout, dtype)
         layers = []
         if preprocess_depth is not None:
             layers += [TransformerLayer(dim, self.n_heads, mlp_dim, dropout, dtype=dtype)
                        for _ in range(preprocess_depth)]
         layers += [TransformerLayer(dim, self.n_heads, mlp_dim, dropout,
-                                    cross=preprocess_depth is not None, dtype=dtype)
+                                    cross=preprocess_depth is not None, causal=causal_mask,
+                                    dtype=dtype)
                    for _ in range(depth)]
         for i, layer in enumerate(layers):
             self.add_module(f"TransformerLayer_{i}", layer)
@@ -188,7 +209,7 @@ class ViT(nn.Module):
             "input": num_patches if self.n_input_tokens is None else self.n_input_tokens,
             "embed": num_patches if self.n_embed_tokens is None else self.n_embed_tokens,
             "class": int(self.num_classes is not None),
-            "time": 0,
+            "time": int(self.time_dependant),
         }
         token_indices, cur = {}, 0
         for k, n in n_tokens.items():
@@ -219,11 +240,19 @@ class ViT(nn.Module):
 
     # -------------------------------------------------- forward
 
+    def _causal(self, n: int, device) -> Optional[torch.Tensor]:
+        """The [1, 1, n, n] lower-triangular mask of a causal stack."""
+        if not self.causal_mask:
+            return None
+        return torch.ones((n, n), dtype=torch.bool, device=device).tril()[None, None]
+
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
-                decode: bool = False,
-                dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                time: Optional[torch.Tensor] = None, decode: bool = False,
+                positions: Optional[torch.Tensor] = None,
+                caches: Optional[Sequence[KVCache]] = None,
+                dropout_rng: Optional[torch.Generator] = None):
         if decode:
-            raise NotImplementedError(f"the KV-cached decode path {_SLICE_7}")
+            return self._decode(x, positions, caches, dropout_rng)
         p = self._plan
         (ph, pw), (nh, nw) = p["patch"], p["n_patch"]
         b = x.shape[0]
@@ -237,6 +266,10 @@ class ViT(nn.Module):
             if labels is None:
                 raise ValueError("`num_classes` set but `labels` is None")
             streams.append(self.class_token(labels)[:, None, :])
+        if self.time_dependant:
+            if time is None:
+                raise ValueError("`time_dependant` set but `time` is None")
+            streams.append(self.time_token(time)[:, None, :])
         # the streams meet in their promoted dtype, as jnp.concatenate does
         dtype = functools.reduce(torch.promote_types, [s.dtype for s in streams])
         x = self.PositionalEmbedding_0(torch.cat([s.to(dtype) for s in streams], dim=1),
@@ -244,16 +277,18 @@ class ViT(nn.Module):
 
         layers = self._layers
         if self.preprocess_depth is None:
+            mask = self._causal(x.shape[1], x.device)
             for layer in layers:
-                x = layer(x, dropout_rng=dropout_rng)
+                x = layer(x, mask=mask, dropout_rng=dropout_rng)
             out = x[:, self._out_idx]
         else:
             memory = x[:, self._cross_idx]
             for layer in layers[:self.preprocess_depth]:
                 memory = layer(memory, dropout_rng=dropout_rng)
             out = x[:, self._out_idx]
+            mask = self._causal(out.shape[1], out.device)
             for layer in layers[self.preprocess_depth:]:
-                out = layer(out, memory=memory, dropout_rng=dropout_rng)
+                out = layer(out, memory=memory, mask=mask, dropout_rng=dropout_rng)
 
         if self.embed_to_patch:  # b (h w) (p1 p2 c) -> b (h p1) (w p2) c
             out = self.unpatch_proj(out[:, -p["num_patches"]:])
@@ -261,9 +296,42 @@ class ViT(nn.Module):
             out = out.reshape(b, nh * ph, nw * pw, self.channels)
         return out
 
+    def _decode(self, x: torch.Tensor, positions, caches, dropout_rng):
+        """The KV-cached path on token embeddings: ``(out, caches)``."""
+        if not self.causal_mask or self.preprocess_depth is not None:
+            raise ValueError("decode=True requires causal_mask=True and no "
+                             "cross-attention preprocess stage")
+        if self.patch_to_embed:
+            raise ValueError("decode=True expects token embeddings, not images")
+        x = self.PositionalEmbedding_0(x, dropout_rng, positions=positions)
+        mask = self._causal(x.shape[1], x.device)
+        caches = [None] * len(self._layers) if caches is None else list(caches)
+        for i, layer in enumerate(self._layers):
+            x, caches[i] = layer(x, mask=mask, dropout_rng=dropout_rng, decode=True,
+                                 cache=caches[i])
+        return x, caches
+
 
 class AutoRegressive(ViT):
-    """Token-level AR model (vocab embedding + ViT trunk + LM head)."""
+    """Token-level AR model: vocabulary embedding ``vocab_embed``, the ViT
+    trunk on the embeddings, LM head ``lm_head`` → logits [B, T, vocab].
+    With ``decode``, ``(logits, caches)``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"AutoRegressive {_SLICE_7}")
+    def __init__(self, *args, vocab_size: int = 0, **kwargs):
+        super().__init__(*args, **kwargs)
+        if vocab_size <= 0:
+            raise ValueError("`vocab_size` must be set")
+        self.vocab_size = vocab_size
+        self.vocab_embed = Embed(vocab_size, self.dim, self.dtype)
+        self.lm_head = Dense(self.dim, vocab_size, self.dtype)
+
+    def forward(self, tokens: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                time: Optional[torch.Tensor] = None, decode: bool = False,
+                positions: Optional[torch.Tensor] = None,
+                caches: Optional[Sequence[KVCache]] = None,
+                dropout_rng: Optional[torch.Generator] = None):
+        hs = super().forward(self.vocab_embed(tokens), labels, time, decode, positions,
+                             caches, dropout_rng)
+        if decode:
+            return self.lm_head(hs[0]), hs[1]
+        return self.lm_head(hs)

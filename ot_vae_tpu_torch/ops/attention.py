@@ -121,6 +121,8 @@ bthd_bwd_launch_count = 0
 bhtc_bwd_launch_count = 0
 # launches of rows 7 and 8 that carried a multiplier (dropout in train mode)
 mult_launch_count = 0
+# launches of rows 7 and 8 with the in-kernel causal mask
+causal_launch_count = 0
 # calls of the fused attention block's forward (row 5) and backward (row 6):
 # one each per call, however many CUDA launches the call makes
 block_launch_count = 0
@@ -517,7 +519,7 @@ def attention_bhtc_backward_reference(q, k, v, out, lse, dout, scale: float):
 
 
 def _launch_bthd(q, k, v, n_heads: int, scale: float, causal: bool, mult):
-    global bthd_launch_count, mult_launch_count
+    global bthd_launch_count, mult_launch_count, causal_launch_count
     b, tq, width = q.shape
     tk, ch = k.shape[1], width // n_heads
     for x, what in ((q, "q"), (k, "k"), (v, "v"), (mult, "mult")):
@@ -535,12 +537,14 @@ def _launch_bthd(q, k, v, n_heads: int, scale: float, causal: bool, mult):
     bthd_launch_count += 1
     if mult is not None:
         mult_launch_count += 1
+    if causal:
+        causal_launch_count += 1
     return out, lse
 
 
 def _launch_bthd_backward(q, k, v, out, lse, dout, n_heads: int, scale: float, causal: bool,
                           mult):
-    global bthd_bwd_launch_count, mult_launch_count
+    global bthd_bwd_launch_count, mult_launch_count, causal_launch_count
     b, tq, width = q.shape
     tk, ch = k.shape[1], width // n_heads
     for x, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"), (dout, "dout"),
@@ -564,6 +568,8 @@ def _launch_bthd_backward(q, k, v, out, lse, dout, n_heads: int, scale: float, c
     bthd_bwd_launch_count += 1
     if mult is not None:
         mult_launch_count += 1
+    if causal:
+        causal_launch_count += 1
     return dq, dk, dv
 
 

@@ -125,11 +125,13 @@ class InferenceEngine:
     @torch.inference_mode()
     def sample(self, batch_size: int, generator: Optional[torch.Generator] = None,
                **kwargs) -> np.ndarray:
-        """``batch_size`` samples from the prior, decoded (not bucketed, as
-        in the JAX engine); ``labels`` [batch_size] for a conditional model."""
+        """``batch_size`` samples through the model's sampler
+        (``model.sample_fn``: prior draws decoded for a plain VAE), not
+        bucketed, as in the JAX engine; ``labels`` [batch_size] for a
+        conditional model."""
         generator = generator if generator is not None else self._default_generator()
-        out = self.model.net.sample(batch_size, generator,
-                                    **self._kwargs(kwargs, batch_size, batch_size))
+        out = self.model.sample_fn(batch_size, generator,
+                                   **self._kwargs(kwargs, batch_size, batch_size))
         return self._out(self.model.inference_postprocess(out), batch_size)
 
     @torch.inference_mode()

@@ -10,7 +10,9 @@ Adam, the EMA update and the step counter.
 Random draws come from ``torch.Generator`` objects seeded from
 ``(seed, salt, epoch, batch_idx)``: a train step takes one each for ε,
 dropout and the batch's preprocessing, the counterpart of the JAX step's
-three-way key split. They are not the JAX trainer's draws, so
+three-way key split; an eval step one each for its forward's ε, its
+latents' ε and the batch's preprocessing (the JAX eval step's ``k_fwd``,
+``k_enc`` and ``k_pre``: AutoDiffusion draws its t there). They are not the JAX trainer's draws, so
 :meth:`Trainer.train_step` also takes ε as a tensor.
 """
 from __future__ import annotations
@@ -226,8 +228,10 @@ class Trainer:
                     break
                 if first_batch is None:
                     first_batch = batch
-                pbatch = model.batch_preprocess(self._put(batch), train=False)
                 salt = 2 if mode == "val" else 3
+                pbatch = model.batch_preprocess(
+                    self._put(batch), train=False,
+                    generator=self.generator(salt, self.current_epoch, batch_idx, 2))
                 preds, latents = model.eval_outputs(
                     pbatch, self.generator(salt, self.current_epoch, batch_idx),
                     self.generator(salt, self.current_epoch, batch_idx, 1))
@@ -277,7 +281,9 @@ class Trainer:
     @torch.no_grad()
     def predict(self, model, datamodule) -> List[torch.Tensor]:
         """The model's forward (inference transforms applied, ε from the
-        fixed default draw) on each predict batch, in eval mode."""
+        fixed default draw) on each predict batch with its ``kwargs``, in
+        eval mode. The batch is preprocessed without a generator, as the JAX
+        ``predict`` passes no key (AutoDiffusion's t is then 0.5)."""
         self._adopt_model(model)
         prev_inference = model.inference
         model.inference = True
@@ -285,7 +291,7 @@ class Trainer:
         outs = []
         for batch in datamodule.predict_batches():
             pbatch = model.batch_preprocess(self._put(batch), train=False)
-            outs.append(model(pbatch["samples"]))
+            outs.append(model(pbatch["samples"], **pbatch["kwargs"]))
         model.inference = prev_inference
         return outs
 

@@ -5,7 +5,7 @@ package, and how far does the MNIST32 VAE train?
 
     python scripts/recipe_divergence.py port [--model ffhq128] [--device cuda] [--batches 4 16 128]
     python scripts/recipe_divergence.py jax [--model ffhq128] [--batch 4] [--steps 10]
-    python scripts/recipe_divergence.py fit [--recipes gate config lecun clip] [--seeds 0 1 2 3 4 5]
+    python scripts/recipe_divergence.py fit [--recipes gate config clip] [--seeds 0 1 2 3 4 5]
 
 ``--model`` picks the VAE: ``ffhq128`` is configs/vae/ffhq128.yaml at full
 width (capacity 64, 128² ↔ 4², head dim 64), ``mnist32`` is
@@ -34,9 +34,6 @@ loss and PSNRs, per recipe and seed:
 - ``config``: the config's batch of 250, no clipping, on the default
   synthetic fallback (6000 train, 1000 test digits), ``--epochs`` epochs
   (10 by default: 240 steps, as chip_smoke.py runs it), validating every 10;
-- ``lecun``: ``config`` with every conv kernel redrawn as flax's default
-  lecun_normal (normal truncated at two standard deviations, variance
-  1/fan_in);
 - ``clip``: ``config`` with global-norm gradient clipping at 1.0.
 
 The port itself never imports JAX; only the ``jax`` mode of this script does.
@@ -83,8 +80,7 @@ class _Recorder:
         self.rows.append((step, dict(metrics)))
 
 
-def port_model(name: str, seed: int, dtype: torch.dtype = torch.float32,
-               lecun: bool = False, clip=None):
+def port_model(name: str, seed: int, dtype: torch.dtype = torch.float32, clip=None):
     from ot_vae_tpu_torch.metrics import PSNR, MetricCollection
     from ot_vae_tpu_torch.models import VAE
     from ot_vae_tpu_torch.networks import CNN
@@ -92,16 +88,9 @@ def port_model(name: str, seed: int, dtype: torch.dtype = torch.float32,
 
     spec = MODELS[name]
     torch.manual_seed(seed)
-    model = VAE(CNN(**spec["encoder"], dtype=dtype), CNN(**spec["decoder"], dtype=dtype),
-                GaussianPrior(loss_coeff=0.1), metrics=MetricCollection({"psnr": PSNR()}),
-                learning_rate=LR, gradient_clip_val=clip)
-    if lecun:
-        with torch.no_grad():
-            for p in model.parameters():
-                if p.dim() == 4:
-                    std = 1.0 / math.sqrt(p[0].numel()) / 0.87962566103423978
-                    torch.nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std)
-    return model
+    return VAE(CNN(**spec["encoder"], dtype=dtype), CNN(**spec["decoder"], dtype=dtype),
+               GaussianPrior(loss_coeff=0.1), metrics=MetricCollection({"psnr": PSNR()}),
+               learning_rate=LR, gradient_clip_val=clip)
 
 
 def data_seed(name: str, seed: int) -> int:
@@ -210,10 +199,10 @@ def run_jax(args):
               + f"; largest prior loss {np.nanmax([r[2] for r in values]):.6g}", flush=True)
 
 
-def fit(name, dm, epochs, seed, device, lecun=False, clip=None, val_every=1):
+def fit(name, dm, epochs, seed, device, clip=None, val_every=1):
     from ot_vae_tpu_torch.trainer import Trainer
 
-    model = port_model("mnist32", seed, lecun=lecun, clip=clip)
+    model = port_model("mnist32", seed, clip=clip)
     rec = _Recorder()
     trainer = Trainer(max_epochs=epochs, seed=MNIST32_SEED, logger=rec, log_every_n_steps=1,
                       check_val_every_n_epoch=val_every, device=device)
@@ -248,7 +237,7 @@ def run_fit(args):
             fit("gate", gate, 6, seed, args.device)
     config = MNIST32(train_batch_size=250, val_batch_size=250, test_batch_size=250,
                      seed=MNIST32_SEED)
-    options = {"config": {}, "lecun": {"lecun": True}, "clip": {"clip": 1.0}}
+    options = {"config": {}, "clip": {"clip": 1.0}}
     for seed in args.seeds:
         for recipe in (r for r in options if r in args.recipes):
             fit(f"config {recipe}" if recipe != "config" else "config", config, args.epochs,
@@ -272,8 +261,8 @@ def main(argv=None) -> int:
         p.add_argument("--seed", type=int, default=0)
     ft = sub.add_parser("fit", help="MNIST32 fits per recipe and seed")
     ft.add_argument("--device", default="cuda")
-    ft.add_argument("--recipes", nargs="+", choices=("gate", "config", "lecun", "clip"),
-                    default=["gate", "config", "lecun", "clip"])
+    ft.add_argument("--recipes", nargs="+", choices=("gate", "config", "clip"),
+                    default=["gate", "config", "clip"])
     ft.add_argument("--seeds", type=int, nargs="+", default=list(range(6)))
     ft.add_argument("--epochs", type=int, default=10)
     args = parser.parse_args(argv)

@@ -283,5 +283,6 @@ def test_converter_is_strict(pair):
     with pytest.raises(RuntimeError, match="Unexpected key"):
         load_jax_variables(VAE(CNN(**ENCODER), CNN(**DECODER), GaussianPrior()).net,
                            extra)
+    # (prior_stats maps since the codebook prior's k-means state does)
     with pytest.raises(ValueError, match="no mapping"):
-        jax_variables_to_state_dict({**jm.variables, "prior_stats": {}})
+        jax_variables_to_state_dict({**jm.variables, "intermediates": {}})
